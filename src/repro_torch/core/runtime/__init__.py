@@ -1,0 +1,39 @@
+"""Backend-agnostic MapReduce job runtime (PyTorch port).
+
+``job.py``          ``CountJob`` and ``JobProfile`` (the per-job profile schema).
+``engine.py``       the single-device counting core with the async
+                    double-buffered chunk queue and the device-side Job1.
+``runners.py``      ``BaseRunner`` and ``TorchRunner`` (one device).
+``strategies.py``   the SPC level-wise scheduler.
+``device_loop.py``  the device-side SPC cut-back filter.
+``cache.py``        the shared encoded-dataset cache (``DATASET_CACHE``).
+"""
+
+from repro_torch.core.runtime.job import CountJob, JobProfile
+from repro_torch.core.runtime.cache import (
+    DATASET_CACHE,
+    EncodedDatasetCache,
+    dataset_digest,
+)
+from repro_torch.core.runtime.device_loop import filter_candidates_device
+from repro_torch.core.runtime.engine import (
+    MapReduceEngine,
+    PendingCounts,
+    resolve_device,
+)
+from repro_torch.core.runtime.runners import BaseRunner, TorchRunner, make_runner
+
+__all__ = [
+    "CountJob",
+    "JobProfile",
+    "DATASET_CACHE",
+    "EncodedDatasetCache",
+    "dataset_digest",
+    "filter_candidates_device",
+    "MapReduceEngine",
+    "PendingCounts",
+    "resolve_device",
+    "BaseRunner",
+    "TorchRunner",
+    "make_runner",
+]

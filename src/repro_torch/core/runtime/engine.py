@@ -1,0 +1,289 @@
+"""MapReduce counting engine on one PyTorch device (no mesh yet).
+
+Mapper = the per-block count over the placed transaction tensors;
+Combiner = the in-block reduction inside the store's ``count_block`` (sum
+over Nb); Reducer = the sum over row blocks, then host-side min-support
+thresholding in the strategy.  The PyTorch counterpart of the JAX package's
+``core/runtime/engine.py``, single device: there is no ``jit`` (PyTorch
+runs eagerly) and asynchrony is the device stream's own order.
+
+The transaction tensors are placed once and reused across levels; per wave
+only the small (C, k) int32 candidate matrix crosses to the device, and the
+store's ``encode_candidates`` builds its candidate tensors there.
+
+Wave dispatch is asynchronous and double-buffered at both stages:
+``count_candidates_async`` splits a wave into ``cand_block`` chunks; up to
+``encode_ahead`` chunks sit encoded ahead of their count dispatch, and up to
+``inflight`` dispatched chunk results stay outstanding before the oldest is
+fetched to the host.  Results resolve strictly in dispatch order, so counts
+are identical at any depth; ``inflight=0`` runs chunk by chunk and
+``inflight=None`` sizes the depth from a measured chunk.
+
+Job1 (the 1-itemset histogram) is a device job too: ``count_items_device``
+bincounts the padded transaction matrix.
+"""
+
+from __future__ import annotations
+
+import collections
+import time
+from typing import Deque, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.stores import ARRAY_STORES, EncodedDB, pad_candidates
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device a port entry point runs on.  A CUDA device without a
+    usable card raises: the port never drops quietly to the CPU, which a
+    caller asks for explicitly with ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' to run on the CPU")
+    return dev
+
+
+class PendingCounts:
+    """Handle for an in-flight counting wave; ``result()`` blocks and joins.
+
+    Chunk results resolve strictly in dispatch order through the engine's
+    FIFO, so counts are independent of the ``inflight`` depth.
+    """
+
+    def __init__(self, engine: "MapReduceEngine", n_chunks: int) -> None:
+        self._engine = engine
+        self._parts: List[Optional[np.ndarray]] = [None] * n_chunks
+        self._cancelled = False
+
+    @property
+    def done(self) -> bool:
+        return all(p is not None for p in self._parts)
+
+    def poll(self) -> bool:
+        """Non-blocking: fetch whatever chunk results the device has already
+        finished (in FIFO order), then report whether this wave is joined."""
+        if self._cancelled:
+            raise RuntimeError(
+                "counting wave was cancelled: place() re-placed the DB "
+                "while this handle's chunks were still in flight")
+        self._engine.drain_ready()
+        return self.done
+
+    def result(self) -> np.ndarray:
+        while not self.done:
+            if self._cancelled or not self._engine._queue:
+                raise RuntimeError(
+                    "counting wave was cancelled: place() re-placed the DB "
+                    "while this handle's chunks were still in flight")
+            self._engine._force_oldest()
+        if not self._parts:
+            return np.zeros((0,), np.int64)
+        return np.concatenate(self._parts)
+
+
+class MapReduceEngine:
+    def __init__(
+        self,
+        store: str = "perfect_hash",
+        block_n: int = 2048,
+        cand_block: int = 32_768,
+        inflight: Optional[int] = 1,
+        encode_ahead: int = 2,
+        device="cuda",
+    ) -> None:
+        if store not in ARRAY_STORES:
+            raise ValueError(f"unknown store {store!r}; pick from {list(ARRAY_STORES)}")
+        self.device = resolve_device(device)
+        self.store = ARRAY_STORES[store]
+        self.store_name = store
+        self.block_n = block_n
+        self.cand_block = cand_block  # bounds per-dispatch candidate memory
+        # inflight=None => auto: pick the depth from the first clean chunk's
+        # measured device latency vs host dispatch time; until tuned, run
+        # classic double buffering.
+        self.inflight_auto = inflight is None
+        self._inflight_tuned = False
+        self.inflight = 1 if inflight is None else inflight
+        self.encode_ahead = encode_ahead
+        # Per-chunk work (min(C, cand_block) * k) the depth was last tuned
+        # on, and the cumulative mid-run re-tunes (surfaced via JobProfile).
+        self._tuned_work: Optional[int] = None
+        self._retune_pending = False
+        self.inflight_retunes = 0
+        self._trans_device: Optional[dict] = None
+        self._enc: Optional[EncodedDB] = None
+        # FIFO of (pending, slot, device_counts, n_valid, done_event).
+        self._queue: Deque[tuple] = collections.deque()
+
+    # -- placement ---------------------------------------------------------
+    def abandon(self) -> None:
+        """Void every outstanding chunk handle and drop the dispatch queue."""
+        for entry in self._queue:
+            entry[0]._cancelled = True
+        self._queue.clear()
+
+    def place(self, enc: EncodedDB) -> None:
+        """Copy the store's transaction tensors to the device; keep them."""
+        self.abandon()  # handles from a prior DB are void
+        trans = self.store.transaction_inputs(enc)
+        self._trans_device = {k: torch.from_numpy(np.ascontiguousarray(v))
+                              .to(self.device) for k, v in trans.items()}
+        self._enc = enc
+
+    def _blocked_count(self, trans: dict, cands: dict) -> torch.Tensor:
+        """Mapper body: a loop over Nb-row blocks bounds peak (Nb, C) memory;
+        a ragged tail block is counted on its own."""
+        n = next(iter(trans.values())).shape[0]
+        block_n = max(1, min(self.block_n, n))  # n == 0 guarded by callers
+        n_blocks = max(1, n // block_n)
+        usable = n_blocks * block_n
+        partial = None
+        for b in range(n_blocks):
+            block = {k: v[b * block_n:(b + 1) * block_n]
+                     for k, v in trans.items()}
+            part = self.store.count_block(block, cands)
+            partial = part if partial is None else partial + part
+        if usable < n:  # ragged tail block
+            partial = partial + self.store.count_block(
+                {k: v[usable:] for k, v in trans.items()}, cands)
+        return partial
+
+    # -- counting ------------------------------------------------------------
+    def _dispatch_encode(self, chunk: np.ndarray) -> dict:
+        """Ship one padded (C, k) chunk and dispatch its device-side encode
+        (nothing here waits for the device)."""
+        cand_p = pad_candidates(chunk, self._enc.f_pad)
+        cand_dev = torch.from_numpy(
+            np.ascontiguousarray(cand_p, dtype=np.int32)).to(self.device)
+        return self.store.encode_candidates(cand_dev, f_pad=self._enc.f_pad)
+
+    def _dispatch_count(self, cands: dict):
+        """Dispatch the count of an encoded chunk; returns the device counts
+        and, on CUDA, an event recorded after them."""
+        dev = self._blocked_count(self._trans_device, cands)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(self.device))
+        return dev, event
+
+    def _count_encoded(self, pending: PendingCounts, encoded: Deque) -> None:
+        """Move the oldest encode slot into the count FIFO; drain the count
+        FIFO down to ``inflight`` outstanding results."""
+        slot, cands, n_valid = encoded.popleft()
+        dev, event = self._dispatch_count(cands)
+        self._queue.append((pending, slot, dev, n_valid, event))
+        while len(self._queue) > self.inflight:
+            self._force_oldest()
+
+    def _force_oldest(self) -> None:
+        """Fetch the oldest outstanding chunk result to the host (blocking)."""
+        pending, slot, dev, c, _ = self._queue.popleft()
+        counts = dev.cpu().numpy()
+        pending._parts[slot] = counts[:c].astype(np.int64)
+
+    def drain_ready(self) -> int:
+        """Fetch every *leading* queue entry whose device result is already
+        computed (``torch.cuda.Event.query``); never block.  Returns the
+        number of chunks joined."""
+        joined = 0
+        while self._queue:
+            event = self._queue[0][4]
+            if event is not None and not event.query():
+                break
+            self._force_oldest()
+            joined += 1
+        return joined
+
+    def count_candidates_async(self, cand: np.ndarray) -> PendingCounts:
+        """Dispatch a counting wave without blocking.
+
+        cand: (C, k) dense-id candidate matrix.  The wave streams through in
+        ``cand_block``-sized chunks; at most ``inflight`` chunk results stay
+        queued on the device before the oldest is forced to the host.
+        """
+        if self._enc is None:
+            raise RuntimeError("call place(enc) first")
+        if cand.size == 0:
+            return PendingCounts(self, 0)
+        cand = np.ascontiguousarray(np.asarray(cand, dtype=np.int32))
+        if self._enc.n_transactions == 0:
+            # Degenerate DB: zero transactions support nothing.
+            pending = PendingCounts(self, 1)
+            pending._parts[0] = np.zeros((cand.shape[0],), np.int64)
+            return pending
+        # Drift is judged on the work of one dispatched chunk.
+        chunk_work = (min(int(cand.shape[0]), self.cand_block)
+                      * int(cand.shape[1]))
+        if (self.inflight_auto and self._inflight_tuned
+                and self._tuned_work is not None
+                and not (self._tuned_work / 2 <= chunk_work
+                         <= self._tuned_work * 2)):
+            # Per-chunk work drifted more than 2x from the tuned shape:
+            # re-tune on the next clean chunk.
+            self._inflight_tuned = False
+            self._retune_pending = True
+        starts = range(0, cand.shape[0], self.cand_block)
+        pending = PendingCounts(self, len(starts))
+        encoded: Deque[tuple] = collections.deque()
+        ahead = self.encode_ahead if self.inflight > 0 else 0
+        for slot, i in enumerate(starts):
+            chunk = cand[i : i + self.cand_block]
+            if (self.inflight_auto and not self._inflight_tuned
+                    and slot == 1 and chunk.shape[0] == self.cand_block):
+                while encoded:  # the sample must not queue behind slot 0
+                    self._count_encoded(pending, encoded)
+                self._tune_inflight(pending, slot, chunk, chunk_work)
+                ahead = self.encode_ahead if self.inflight > 0 else 0
+                continue
+            encoded.append((slot, self._dispatch_encode(chunk),
+                            chunk.shape[0]))
+            if len(encoded) > ahead:
+                self._count_encoded(pending, encoded)
+        while encoded:  # counts of the trailing encode slots (all async)
+            self._count_encoded(pending, encoded)
+        return pending
+
+    def _tune_inflight(self, pending: PendingCounts, slot: int,
+                       chunk: np.ndarray, chunk_work: int) -> None:
+        """Auto-size the queue depth (``inflight=None``): depth = device
+        completion latency / host dispatch time of the wave's second, full
+        chunk, clamped to [1, 8].  Counts are identical at any depth."""
+        while self._queue:
+            self._force_oldest()
+        t0 = time.perf_counter()
+        dev, event = self._dispatch_count(self._dispatch_encode(chunk))
+        submit_s = time.perf_counter() - t0
+        self._queue.append((pending, slot, dev, chunk.shape[0], event))
+        t0 = time.perf_counter()
+        self._force_oldest()
+        wait_s = time.perf_counter() - t0
+        self.inflight = int(np.clip(
+            round(wait_s / max(submit_s, 1e-6)), 1, 8))
+        self._inflight_tuned = True
+        self._tuned_work = chunk_work
+        if self._retune_pending:  # a mid-run re-tune actually fired
+            self.inflight_retunes += 1
+            self._retune_pending = False
+
+    def count_candidates(self, cand: np.ndarray) -> np.ndarray:
+        """Blocking wrapper: (C, k) candidate matrix -> int64[C] counts."""
+        return self.count_candidates_async(cand).result()
+
+    # -- L1 (Job1: OneItemsetMapper + reducer) -------------------------------
+    def count_items_device(self, padded: np.ndarray, n_items: int) -> np.ndarray:
+        """Device-side Job1: histogram of the (N, L) padded id matrix.  Rows
+        hold *unique* sorted ids padded with ITEM_PAD, so presence counting
+        is a bincount; pads (and any id >= n_items) land in a dump slot."""
+        n = padded.shape[0]
+        if n == 0 or n_items == 0:
+            return np.zeros((n_items,), np.int64)
+        p = torch.from_numpy(
+            np.ascontiguousarray(padded, dtype=np.int32)).to(self.device)
+        ids = torch.clamp(p, max=n_items).reshape(-1).to(torch.int64)
+        hist = torch.bincount(ids, minlength=n_items + 1)[:n_items]
+        return hist.cpu().numpy().astype(np.int64)

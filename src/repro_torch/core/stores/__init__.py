@@ -1,0 +1,49 @@
+"""Array-layout candidate stores (PyTorch port).
+
+=================  =====================  =========================================
+paper structure    store                  per-level matching primitive
+=================  =====================  =========================================
+hash-table trie    ``perfect_hash``       one gather into the transaction bitmap
+(beyond paper)     ``bitmap``             dense (T·Cᵀ == k) product, int8 tensor cores
+(beyond paper)     ``packed_bitmap``      popcount(t & c) == k over 32-items/word
+=================  =====================  =========================================
+
+Every store implements ``count_block(trans_block, cands) -> int32[C]`` over
+a block of transaction tensors, and all produce identical counts.  Candidate
+tensors are built on the device by ``encode_candidates(cand, f_pad=...)``
+from the small (C, k) int32 matrix, the only per-wave host-to-device
+transfer.  ``sorted_prefix`` and ``hash_bucket`` are not ported yet.
+"""
+
+from repro_torch.core.stores.base import (
+    DeltaCountMixin, EncodedDB, dense_remap_padded, encode_db,
+    encode_db_from_padded, encoded_db_from_numpy, pack_bitmap, pad_candidates,
+    padded_from_transactions, ITEM_PAD, WORD_BITS,
+)
+from repro_torch.core.stores.perfect_hash import PerfectHashStore
+from repro_torch.core.stores.bitmap import BitmapMXUStore
+from repro_torch.core.stores.packed_bitmap import PackedBitmapStore
+
+ARRAY_STORES = {
+    "perfect_hash": PerfectHashStore,
+    "bitmap": BitmapMXUStore,
+    "packed_bitmap": PackedBitmapStore,
+}
+
+__all__ = [
+    "DeltaCountMixin",
+    "EncodedDB",
+    "dense_remap_padded",
+    "encode_db",
+    "encode_db_from_padded",
+    "encoded_db_from_numpy",
+    "padded_from_transactions",
+    "pack_bitmap",
+    "pad_candidates",
+    "ITEM_PAD",
+    "WORD_BITS",
+    "PerfectHashStore",
+    "BitmapMXUStore",
+    "PackedBitmapStore",
+    "ARRAY_STORES",
+]

@@ -1,0 +1,22 @@
+"""Support-count kernels: hand-written CUDA for Hopper plus their plain
+PyTorch versions (``ref.py``)."""
+
+from repro_torch.kernels.support_count.ops import (
+    launches,
+    packed_support_count,
+    reset_launches,
+    support_count,
+)
+from repro_torch.kernels.support_count.ref import (
+    packed_support_count_ref,
+    support_count_ref,
+)
+
+__all__ = [
+    "launches",
+    "reset_launches",
+    "support_count",
+    "support_count_ref",
+    "packed_support_count",
+    "packed_support_count_ref",
+]

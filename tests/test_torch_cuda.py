@@ -1,0 +1,151 @@
+"""The hand-written CUDA kernels of the PyTorch port, on a card.
+
+Every test here is marked ``cuda`` and skips on a machine without a CUDA
+card (deciding inside the fixture, never at import).  The module imports
+neither JAX nor ``repro``, so it runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Each kernel is held exactly against its plain PyTorch version on the same
+device (counts are integers), on ragged shapes, C larger than a tile, mixed
+k with kvec = -1 pad rows, and wide vocabularies; a small mine through each
+store on the card is held against brute-force counting.
+"""
+
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.itemsets import brute_force_frequent  # noqa: E402
+from repro_torch.core.miner import FrequentItemsetMiner  # noqa: E402
+from repro_torch.core.stores import ARRAY_STORES, pack_bitmap  # noqa: E402
+from repro_torch.core.stores.packed_bitmap import pack_candidates_device  # noqa: E402
+from repro_torch.data import get_dataset  # noqa: E402
+from repro_torch.kernels.support_count import (  # noqa: E402
+    launches, packed_support_count, packed_support_count_ref, support_count,
+    support_count_ref,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    return torch.device("cuda")
+
+
+def _packed_args(dev, n, w, c, ks, pads, seed):
+    rng = np.random.default_rng(seed)
+    f = w * 32
+    bitmap = np.zeros((n, f), np.uint8)
+    bitmap[:, : f - 1] = rng.random((n, f - 1)) < 0.35
+    bitmap[::5, 31] = 1  # set the int32 sign bit of word 0
+    rows = [np.sort(rng.choice(f - 1, ks[i % len(ks)], replace=False))
+            for i in range(c)]
+    cp = torch.cat([pack_candidates_device(
+        torch.from_numpy(r.astype(np.int32)[None, :]), w) for r in rows])
+    kvec = torch.tensor([len(r) for r in rows], dtype=torch.int32)
+    if pads:
+        kvec[-pads:] = -1
+    return [torch.from_numpy(pack_bitmap(bitmap)).to(dev), cp.to(dev), kvec.to(dev)]
+
+
+def _bitmap_args(dev, n, f, c, ks, pads, seed, dtype=torch.int8):
+    rng = np.random.default_rng(seed)
+    bitmap = (rng.random((n, f)) < 0.3).astype(np.uint8)
+    khot = np.zeros((c, f), np.int8)
+    kvec = np.zeros(c, np.int32)
+    for i in range(c):
+        kvec[i] = ks[i % len(ks)]
+        khot[i, rng.choice(f, kvec[i], replace=False)] = 1
+    if pads:
+        kvec[-pads:] = -1
+    return [torch.from_numpy(bitmap).to(dev).to(dtype),
+            torch.from_numpy(khot).to(dev), torch.from_numpy(kvec).to(dev)]
+
+
+@pytest.mark.parametrize("n,w,c,ks,pads", [
+    (8, 4, 4, [1], 0), (100, 5, 70, [2], 0), (256, 8, 128, [3], 0),
+    (513, 9, 300, [5], 0), (64, 16, 1024, [4], 0),      # C > tile
+    (90, 6, 50, [1, 2, 3, 4], 6),                       # mixed k + pads
+    (256, 160, 300, [1, 2, 3, 6], 11),                  # W >= 128
+    (2048, 16, 4096, [2], 5),                           # main-path block
+])
+def test_packed_kernel_matches_plain(cuda, n, w, c, ks, pads):
+    args = _packed_args(cuda, n, w, c, ks, pads, seed=n + c)
+    before = launches["packed_support_count"]
+    got = packed_support_count(*args)
+    torch.cuda.synchronize()
+    assert launches["packed_support_count"] == before + 1
+    want = packed_support_count_ref(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if pads:
+        assert (got[-pads:] == 0).all()
+
+
+@pytest.mark.parametrize("n,f,c,ks,pads", [
+    (8, 16, 4, [1], 0), (100, 130, 70, [2], 0), (256, 128, 128, [3], 0),
+    (513, 257, 300, [5], 0), (64, 512, 1024, [4], 0),   # C > tile
+    (1200, 96, 33, [7], 0), (128, 64, 30, [2, 3, 4], 5),  # mixed k + pads
+    (300, 4096, 200, [1, 2, 3, 6], 9),                  # wide vocabulary
+    (2048, 512, 4096, [2], 5),                          # main-path block
+])
+def test_support_count_kernel_matches_plain(cuda, n, f, c, ks, pads):
+    args = _bitmap_args(cuda, n, f, c, ks, pads, seed=n * 7 + c)
+    before = launches["support_count"]
+    got = support_count(*args)
+    torch.cuda.synchronize()
+    assert launches["support_count"] == before + 1
+    torch.testing.assert_close(got, support_count_ref(*args), rtol=0, atol=0)
+
+
+def test_support_count_kernel_takes_uint8_bitmap(cuda):
+    args = _bitmap_args(cuda, 200, 140, 180, [4], 3, seed=11, dtype=torch.uint8)
+    torch.testing.assert_close(support_count(*args), support_count_ref(*args),
+                               rtol=0, atol=0)
+
+
+def test_kernel_on_row_block_views(cuda):
+    """The engine hands the kernels row slices of the placed DB (views at
+    an offset); a ragged tail block included."""
+    packed, cp, kv = _packed_args(cuda, 1000, 16, 200, [2], 0, seed=3)
+    bitmap, khot, kv2 = _bitmap_args(cuda, 1000, 512, 200, [2], 0, seed=3)
+    for lo, hi in ((0, 512), (512, 1000), (999, 1000)):
+        torch.testing.assert_close(
+            packed_support_count(packed[lo:hi], cp, kv),
+            packed_support_count_ref(packed[lo:hi], cp, kv), rtol=0, atol=0)
+        torch.testing.assert_close(
+            support_count(bitmap[lo:hi], khot, kv2),
+            support_count_ref(bitmap[lo:hi], khot, kv2), rtol=0, atol=0)
+
+
+def test_wrappers_reject_bad_inputs(cuda):
+    words = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
+    kv = torch.zeros((8,), dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        packed_support_count(words.float(), words, kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_support_count(words, torch.zeros((4, 8), dtype=torch.int32,
+                                                device=cuda).T, kv)
+    with pytest.raises(TypeError):
+        support_count(words.float(), words.to(torch.int8), kv)
+    with pytest.raises(ValueError, match="different devices"):
+        packed_support_count(words, words.cpu(), kv)
+
+
+@pytest.mark.parametrize("store,use_kernel", [
+    ("packed_bitmap", True), ("bitmap", True), ("perfect_hash", False),
+    ("packed_bitmap", False), ("bitmap", False)])
+def test_small_mine_on_card_matches_brute_force(cuda, store, use_kernel,
+                                                monkeypatch):
+    if store != "perfect_hash":
+        monkeypatch.setattr(ARRAY_STORES[store], "use_kernel", use_kernel)
+    db = get_dataset("T10I4D100K", scale=0.002, seed=0)
+    want = brute_force_frequent(db, math.ceil(0.02 * len(db)))
+    got = FrequentItemsetMiner(min_support=0.02, store=store).mine(db)
+    assert got.itemsets == want
