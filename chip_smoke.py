@@ -11,16 +11,17 @@ result line) when it fails:
    kernels from ``src/repro_torch/kernels/support_count/csrc``;
 2. every kernel against its plain PyTorch version on the card, exactly
    (counts are integers), at the shapes the main path gives it on
-   T10I4D100K and at ragged shapes (C larger than a tile, mixed k with pad
-   rows, a W >= 128 vocabulary); kernel, plain and library times beside the
-   least time the card could take;
+   T10I4D100K (and, for the bitmap kernel, on BMS_WebView_2: F_pad = 128)
+   and at ragged shapes (C larger than a tile, mixed k with pad rows, N
+   split across blocks, a W >= 128 vocabulary, F % 16 != 0); kernel, plain
+   and library times beside the least time the card could take;
 3. a small mine on the card, every store, against brute-force counting;
 4. the main path: ``FrequentItemsetMiner.mine`` on T10I4D100K (scale 1.0,
    min_support 0.01) and the BMS_WebView_2 twin (scale 1.0, min_support
    0.002), each with ``packed_bitmap`` and ``bitmap`` on their kernels and
    with ``perfect_hash``; itemsets AND supports must agree across the three
-   stores, and every kernel's launch count must equal the main path's
-   blocks x chunks.
+   stores, every kernel's launch count must equal the main path's
+   blocks x chunks, and no bitmap count may take the wrapper's pad copy.
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -37,8 +38,10 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM device memory
-INT8_TENSOR_OPS = 1.979e15   # H100 SXM dense int8 tensor-core rate
 POPC_PER_CLK_PER_SM = 16     # 32-bit popcount issue rate, compute capability 9.0
+# Dense int8 tensor-core operations per clock per SM on Hopper: the data
+# sheet's 1,979 TOP/s is 8,192 x 132 SMs x 1,830 MHz.
+INT8_OPS_PER_CLK_PER_SM = 8192
 BLOCK_N, CAND_BLOCK = 2048, 32_768  # the miner's default row block / chunk
 
 
@@ -65,6 +68,42 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def profiled_ms(fn, kernel: str, reps: int = 20):
+    """(device ms per launch of the hand-written kernel ``kernel``, from a
+    ``torch.profiler`` trace; host ms per call, the enqueue time).  The
+    device time is None where the trace holds none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_us, count = 0.0, 0
+        for ev in prof.key_averages():
+            # Demangled or not, the name holds "<kernel>_kernel" right after
+            # a non-name character ("::", a length digit), so "packed_..."
+            # never passes for the other kernel.
+            at = ev.key.find(f"{kernel}_kernel")
+            if at > 0 and not (ev.key[at - 1].isalpha() or ev.key[at - 1] == "_"):
+                total_us += getattr(ev, "device_time_total", None) \
+                    or getattr(ev, "cuda_time_total", 0.0)
+                count += ev.count
+        device_ms = total_us / count / 1e3 if count and total_us else None
+    except Exception as err:  # the numbers stay "not measured"
+        print(f"profiler: no device time ({type(err).__name__}: {err})")
+        device_ms = None
+    return device_ms, host_ms
+
+
 def encode(db, min_count):
     """Host encode of a DB over its frequent items (the runner's place())."""
     import numpy as np
@@ -78,7 +117,75 @@ def encode(db, min_count):
     return encode_db_from_padded(dense, n_items=len(item_map))
 
 
-def kernel_phase(enc, rng, sm_rate):
+def time_bitmap_shape(a, b, kv, int8_rate):
+    """Times of the bitmap kernel, its plain version and two library
+    products (neither computes the compare or the sum) at one shape."""
+    import torch
+    from repro_torch.kernels.support_count import support_count, support_count_ref
+
+    n, c, f = a.shape[0], b.shape[0], a.shape[1]
+    ops_s = 2 * n * c * f / int8_rate
+    bytes_s = (a.numel() + b.numel() + 2 * c * 4) / HBM_BYTES_PER_S
+    a16, b16t = a.to(torch.bfloat16), b.to(torch.bfloat16).T
+    try:  # int8 operands and int32 output, like the kernel's own types
+        a8, b8t = a.view(torch.int8), b.view(torch.int8).T
+        int8_ms = cuda_ms(lambda: torch._int_mm(a8, b8t), reps=20)
+        int8_note = "ok"
+    except RuntimeError as err:
+        int8_ms, int8_note = None, f"refused: {str(err).splitlines()[0]}"
+    row = {"n": n, "c": c, "width": f,
+           "ms": cuda_ms(lambda: support_count(a, b, kv), reps=50),
+           "plain_ms": cuda_ms(lambda: support_count_ref(a, b, kv), reps=3,
+                               warmup=1),
+           "bound_ms": max(bytes_s, ops_s) * 1e3,
+           "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+           "library_ms": cuda_ms(lambda: torch.matmul(a16, b16t), reps=20),
+           "library_int8_ms": int8_ms}
+    row["device_ms"], row["host_call_ms"] = profiled_ms(
+        lambda: support_count(a, b, kv), "support_count")
+    print(f"time support_count n={n} c={c} width={f}: kernel {row['ms']:.4f} ms "
+          f"({100 * row['bound_ms'] / row['ms']:.1f} % of bound "
+          f"{row['bound_ms']:.4f} ms, {row['bound_by']}), plain "
+          f"{row['plain_ms']:.4f} ms, bf16 torch.matmul {row['library_ms']:.4f} "
+          f"ms, int8 torch._int_mm " + (f"{int8_ms:.4f} ms" if int8_ms else int8_note)
+          + " (library products only: no compare, no sum); profiler device "
+          f"{row['device_ms']} ms per launch, host {row['host_call_ms']:.4f} ms "
+          "per call")
+    return row
+
+
+def bitmap_sweep(enc, khot, kvec, int8_rate):
+    """Device time of the bitmap kernel as N grows at the main path's C and
+    F_pad, and at the last T10I4D100K C2 chunk's C: the slope is the main
+    loop's rate, the intercept the per-launch fixed cost."""
+    import torch
+    from repro_torch.kernels.support_count import support_count
+
+    f, c = khot.shape[1], khot.shape[0]
+    last = 29_056  # 127,260 - 3 x 32,768 candidates, padded to 128
+    out = []
+    for n, cc in ((BLOCK_N, c), (4 * BLOCK_N, c), (8 * BLOCK_N, c),
+                  (BLOCK_N, last)):
+        a = torch.from_numpy(enc.bitmap[:n]).to(khot.device)
+        b, kv = khot[:cc], kvec[:cc]
+        dev_ms, _ = profiled_ms(lambda: support_count(a, b, kv), "support_count")
+        out.append({"n": n, "c": cc, "width": f, "device_ms": dev_ms,
+                    "share_of_bound": (2 * n * cc * f / int8_rate * 1e3 / dev_ms
+                                       if dev_ms else None)})
+    full = [r for r in out[:3] if r["device_ms"]]
+    if len(full) == 3:
+        slope = (full[2]["device_ms"] - full[0]["device_ms"]) / (
+            full[2]["n"] - full[0]["n"])
+        print(f"sweep support_count c={c} width={f}: "
+              + ", ".join(f"n={r['n']} {r['device_ms']:.4f} ms" for r in full)
+              + f"; main loop {2 * c * f / (slope * 1e-3) / 1e12:.0f} TOP/s "
+              f"({2 * c * f / (slope * 1e-3) / int8_rate * 100:.1f} % of peak), "
+              f"fixed {full[0]['device_ms'] - slope * full[0]['n']:.4f} ms per "
+              f"launch; n={BLOCK_N} c={last}: {out[3]['device_ms']} ms")
+    return out
+
+
+def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
     """Every kernel vs its plain version on the card; returns JSON rows."""
     import numpy as np
     import torch
@@ -92,16 +199,24 @@ def kernel_phase(enc, rng, sm_rate):
         support_count_ref)
 
     dev = torch.device("cuda")
+
+    def first_c2_chunk(e):
+        """The main path's first C2 chunk of an encoded DB, on the card."""
+        c2 = apriori_gen_matrix(np.arange(e.n_items, dtype=np.int32)[:, None])
+        return torch.from_numpy(pad_candidates(c2[:CAND_BLOCK], e.f_pad)).to(dev)
+
     # The main path's first C2 chunk against its first row block.
-    c2 = apriori_gen_matrix(np.arange(enc.n_items, dtype=np.int32)[:, None])
-    cand = torch.from_numpy(pad_candidates(c2[:CAND_BLOCK], enc.f_pad)).to(dev)
+    cand = first_c2_chunk(enc)
     packed = torch.from_numpy(enc.packed[:BLOCK_N]).to(dev)
     bitmap = torch.from_numpy(enc.bitmap[:BLOCK_N]).to(dev)
+    bitmap_bms = torch.from_numpy(enc_bms.bitmap[:BLOCK_N]).to(dev)
     saved = PackedBitmapStore.use_kernel, BitmapMXUStore.use_kernel
     PackedBitmapStore.use_kernel = BitmapMXUStore.use_kernel = True
     try:
         pc = PackedBitmapStore.encode_candidates(cand, f_pad=enc.f_pad)
         bc = BitmapMXUStore.encode_candidates(cand, f_pad=enc.f_pad)
+        bc_bms = BitmapMXUStore.encode_candidates(first_c2_chunk(enc_bms),
+                                                  f_pad=enc_bms.f_pad)
     finally:
         PackedBitmapStore.use_kernel, BitmapMXUStore.use_kernel = saved
 
@@ -145,16 +260,20 @@ def kernel_phase(enc, rng, sm_rate):
          "source": "src/repro_torch/kernels/support_count/csrc/support_count.cu",
          "replaces": "src/repro/kernels/support_count/kernel.py:51",
          "main": (bitmap, bc["khot"], bc["kvec"]),
+         "more": [(bitmap_bms, bc_bms["khot"], bc_bms["kvec"])],
          "ragged": [bitmap_case(513, 257, 300, [5], 0),
                     bitmap_case(100, 130, 70, [2], 0),
                     bitmap_case(64, 512, 1024, [4], 0),
                     bitmap_case(128, 64, 30, [2, 3, 4], 5),
-                    bitmap_case(300, 4096, 200, [1, 2, 3, 6], 9)]},
+                    bitmap_case(300, 4096, 200, [1, 2, 3, 6], 9),
+                    bitmap_case(2048, 512, 1000, [2], 0),    # N split
+                    bitmap_case(1, 64, 300, [1], 0),
+                    bitmap_case(1000, 96, 600, [2, 3], 7)]},
     ]
     rows = []
     for spec in specs:
         err = 0
-        for args in [spec["main"], *spec["ragged"]]:
+        for args in [spec["main"], *spec.get("more", []), *spec["ragged"]]:
             got = spec["kernel"](*args)
             torch.cuda.synchronize()
             want = spec["plain"](*args)
@@ -165,34 +284,42 @@ def kernel_phase(enc, rng, sm_rate):
         if err:
             raise AssertionError(f"{spec['name']} disagrees with its plain "
                                  f"version (max_abs_err {err})")
+        row = {"name": spec["name"], "route": "cuda", "source": spec["source"],
+               "replaces": spec["replaces"], "launches": 0, "max_abs_err": err}
         a, b, kv = spec["main"]
+        if spec["name"] == "support_count":
+            shapes = [time_bitmap_shape(*args, int8_rate)
+                      for args in [spec["main"], *spec["more"]]]
+            row.update({k: shapes[0][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_int8_ms", "device_ms", "host_call_ms")})
+            row["shape"] = {k: shapes[0][k] for k in ("n", "c", "width")}
+            row["more_shapes"] = shapes[1:]
+            row["sweep"] = bitmap_sweep(enc, b, kv, int8_rate)
+            rows.append(row)
+            continue
         n, c, width = a.shape[0], b.shape[0], a.shape[1]
         ms = cuda_ms(lambda: spec["kernel"](a, b, kv), reps=20)
         plain_ms = cuda_ms(lambda: spec["plain"](a, b, kv), reps=3, warmup=1)
         io_bytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
                     + 2 * c * 4)
-        if spec["name"] == "packed_support_count":
-            ops_s = n * c * width / sm_rate
-            library_ms = None
-        else:
-            ops_s = 2 * n * c * width / INT8_TENSOR_OPS
-            a16, b16t = a.to(torch.bfloat16), b.to(torch.bfloat16).T
-            library_ms = cuda_ms(lambda: torch.matmul(a16, b16t), reps=20)
+        ops_s = n * c * width / sm_rate
         bytes_s = io_bytes / HBM_BYTES_PER_S
-        rows.append({
-            "name": spec["name"], "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
+        device_ms, host_call_ms = profiled_ms(
+            lambda: spec["kernel"](a, b, kv), "packed_support_count")
+        row.update({
+            "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
+            "host_call_ms": host_call_ms,
             "bound_ms": max(bytes_s, ops_s) * 1e3,
             "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-            "library_ms": library_ms,
+            "library_ms": None,
             "shape": {"n": n, "c": c, "width": width},
         })
+        rows.append(row)
         print(f"time {spec['name']} n={n} c={c} width={width}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {rows[-1]['bound_ms']:.4f} ms "
-              f"({rows[-1]['bound_by']}), library "
-              + ("none" if library_ms is None else
-                 f"{library_ms:.4f} ms (bf16 torch.matmul only, no compare/sum)"))
+              f"plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), library none; profiler device {device_ms} ms "
+              f"per launch, host {host_call_ms:.4f} ms per call")
     return rows
 
 
@@ -244,13 +371,16 @@ def main() -> int:
     import numpy as np
     from repro_torch.core.itemsets import brute_force_frequent
     from repro_torch.data import get_dataset
-    from repro_torch.kernels.support_count import build, launches, reset_launches
+    from repro_torch.kernels.support_count import (
+        build, launches, pad_copies, reset_launches)
 
     t_start = time.perf_counter()
     card = smi("name,power.limit")
     max_sm_mhz = float(smi("clocks.max.sm").split()[0])
     props = torch.cuda.get_device_properties(0)
     sm_rate = POPC_PER_CLK_PER_SM * props.multi_processor_count * max_sm_mhz * 1e6
+    int8_rate = (INT8_OPS_PER_CLK_PER_SM * props.multi_processor_count
+                 * max_sm_mhz * 1e6)
     print(f"card: {card}; {props.multi_processor_count} SMs, max SM clock "
           f"{max_sm_mhz:.0f} MHz; torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain bitmap path: fp32
@@ -262,7 +392,8 @@ def main() -> int:
     print(f"build: both kernels in {build_s:.2f} s")
     for name, log in logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "smem",
+                                       "arning", "wgmma")):
                 print(f"ptxas {name}: {line.strip()}")
 
     # Data for the main path, made from the seed.
@@ -278,7 +409,12 @@ def main() -> int:
     enc = encode(t10[2], math.ceil(t10[1] * len(t10[2])))
     print(f"T10I4D100K encode: N={enc.n_transactions} F={enc.n_items} "
           f"F_pad={enc.f_pad} W={enc.n_words}")
-    rows = kernel_phase(enc, np.random.default_rng(0), sm_rate)
+    bms = workloads[1]
+    enc_bms = encode(bms[2], math.ceil(bms[1] * len(bms[2])))
+    print(f"BMS_WebView_2 encode: N={enc_bms.n_transactions} "
+          f"F={enc_bms.n_items} F_pad={enc_bms.f_pad}")
+    rows = kernel_phase(enc, enc_bms, np.random.default_rng(0), sm_rate,
+                        int8_rate)
 
     # Phase 3: a small mine against brute force.
     small_check(get_dataset, brute_force_frequent)
@@ -293,6 +429,9 @@ def main() -> int:
             reset_launches()
             res, wall = mine(db, support, store, uk)
             got = dict(launches)
+            if pad_copies["support_count"]:
+                raise AssertionError(f"{store}: {pad_copies} pad copies on "
+                                     "the main path")
             for k in total:
                 total[k] += got[k]
             n = res.n_transactions

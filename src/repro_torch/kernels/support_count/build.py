@@ -34,7 +34,7 @@ KERNELS = {
     "packed_support_count": ("packed_support_count_launch",
                              [_P, _P, _P, _P, _I, _I, _I, _P]),
     "support_count": ("support_count_launch",
-                      [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                      [_P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

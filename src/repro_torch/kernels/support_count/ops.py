@@ -3,10 +3,12 @@
 On CPU tensors a wrapper computes with its kernel's plain version
 (``ref.py``); on CUDA tensors it launches the hand-written kernel
 (``csrc/``) on PyTorch's current stream, or raises — there is no fallback.
-The wrapper checks device, dtype, shape and contiguity, allocates the zeroed
+The wrapper checks device, dtype, shape and contiguity, allocates the
 output, and adds one to ``launches[name]`` for every kernel launch (and
 nowhere else), so a run can show that its main path went through the
-kernels.
+kernels.  ``pad_copies["support_count"]`` counts the calls whose operands had
+to be copied into the layout TMA reads (``tma_operands``); the main path's
+F_pad is a multiple of 128 and never takes that route.
 """
 
 from __future__ import annotations
@@ -22,11 +24,15 @@ from repro_torch.kernels.support_count.ref import (
 )
 
 launches: Dict[str, int] = {name: 0 for name in build.KERNELS}
+pad_copies: Dict[str, int] = {"support_count": 0}
+TMA_ALIGN = 16  # bytes: TMA's row pitch and base-address granule
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    """Zero every launch count and the pad-copy count."""
+    for counts in (launches, pad_copies):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -84,6 +90,26 @@ def packed_support_count(packed: torch.Tensor, cpacked: torch.Tensor,
     return out
 
 
+def tma_operands(bitmap: torch.Tensor, khot: torch.Tensor):
+    """(bitmap, khot, copied): the two row-major operands as the kernel's
+    TMA descriptors take them, rows of a multiple of 16 bytes at 16-byte
+    aligned addresses.  When they are not, both are copied into fresh
+    zero-filled (rows, F16) tensors, F16 the next multiple of 16 (at least
+    16): zero columns add nothing to any dot, so every count is unchanged."""
+    f = bitmap.shape[1]
+    if (f and f % TMA_ALIGN == 0 and bitmap.data_ptr() % TMA_ALIGN == 0
+            and khot.data_ptr() % TMA_ALIGN == 0):
+        return bitmap, khot, False
+    f16 = max(TMA_ALIGN, -(-f // TMA_ALIGN) * TMA_ALIGN)
+
+    def pad(t: torch.Tensor) -> torch.Tensor:
+        wide = t.new_zeros((t.shape[0], f16))
+        wide[:, :f] = t
+        return wide
+
+    return pad(bitmap), pad(khot), True
+
+
 def support_count(bitmap: torch.Tensor, khot: torch.Tensor,
                   kvec: torch.Tensor) -> torch.Tensor:
     """int32[C]: for every k-hot candidate row of ``khot`` (C, F), the
@@ -102,13 +128,13 @@ def support_count(bitmap: torch.Tensor, khot: torch.Tensor,
     if khot.shape[1] != f or kvec.shape[0] != c:
         raise ValueError(f"shapes bitmap {tuple(bitmap.shape)}, khot "
                          f"{tuple(khot.shape)}, kvec {tuple(kvec.shape)}")
-    out = torch.zeros((c,), dtype=torch.int32, device=bitmap.device)
     if n == 0 or c == 0:
-        return out
-    vec16 = int(f % 16 == 0 and bitmap.data_ptr() % 16 == 0
-                and khot.data_ptr() % 16 == 0)
+        return torch.zeros((c,), dtype=torch.int32, device=bitmap.device)
+    out = torch.empty((c,), dtype=torch.int32, device=bitmap.device)
     with torch.cuda.device(bitmap.device):
+        bitmap, khot, copied = tma_operands(bitmap, khot)
+        pad_copies["support_count"] += copied
         stream = torch.cuda.current_stream().cuda_stream
         _launch("support_count", bitmap.data_ptr(), khot.data_ptr(),
-                kvec.data_ptr(), out.data_ptr(), n, c, f, vec16, stream)
+                kvec.data_ptr(), out.data_ptr(), n, c, bitmap.shape[1], stream)
     return out

@@ -8,8 +8,9 @@ neither JAX nor ``repro``, so it runs where only PyTorch is installed:
 
 Each kernel is held exactly against its plain PyTorch version on the same
 device (counts are integers), on ragged shapes, C larger than a tile, mixed
-k with kvec = -1 pad rows, and wide vocabularies; a small mine through each
-store on the card is held against brute-force counting.
+k with kvec = -1 pad rows, and wide vocabularies; the bitmap kernel also on
+the edges of its TMA/wgmma design (``WGMMA_EDGES``).  A small mine through
+each store on the card is held against brute-force counting.
 """
 
 import math
@@ -25,8 +26,8 @@ from repro_torch.core.stores import ARRAY_STORES, pack_bitmap  # noqa: E402
 from repro_torch.core.stores.packed_bitmap import pack_candidates_device  # noqa: E402
 from repro_torch.data import get_dataset  # noqa: E402
 from repro_torch.kernels.support_count import (  # noqa: E402
-    launches, packed_support_count, packed_support_count_ref, support_count,
-    support_count_ref,
+    launches, packed_support_count, packed_support_count_ref, pad_copies,
+    support_count, support_count_ref,
 )
 
 pytestmark = pytest.mark.cuda
@@ -108,6 +109,66 @@ def test_support_count_kernel_takes_uint8_bitmap(cuda):
     args = _bitmap_args(cuda, 200, 140, 180, [4], 3, seed=11, dtype=torch.uint8)
     torch.testing.assert_close(support_count(*args), support_count_ref(*args),
                                rtol=0, atol=0)
+
+
+# The wgmma kernel's edges: 256-candidate tiles (two 128-candidate halves),
+# 64-row stages, 128-byte k-slabs resident up to F = 640 and streamed
+# beyond, N split across blocks when the candidate tiles do not fill the
+# SMs, and the pad copy when F % 16 != 0.
+WGMMA_EDGES = {
+    "c_not_tile_multiple": dict(n=300, f=128, c=300),
+    "n_split": dict(n=2048, f=512, c=1000),
+    "n_below_64": dict(n=40, f=256, c=500),
+    "n_one": dict(n=1, f=64, c=300, zero_k=5),
+    "n_not_stage_multiple": dict(n=1000, f=384, c=600, zero_k=7),
+    "f128_single_slab": dict(n=2048, f=128, c=7503),
+    "f4096_streamed": dict(n=300, f=4096, c=600, ks=[1, 2, 3, 6], pads=9),
+    "f_not_16_pad_route": dict(n=513, f=257, c=300, ks=[5]),
+    "khot_up_to_127": dict(n=512, f=256, c=400, big=True),
+    "mixed_k_pads": dict(n=700, f=512, c=900, ks=[2, 3, 4, 5], pads=17),
+    "uint8_bitmap": dict(n=600, f=512, c=520, dtype=torch.uint8),
+    "row_view_at_offset": dict(n=3000, f=512, c=700, view=(2048, 3000)),
+}
+
+
+def _edge_args(dev, n, f, c, ks=(2,), pads=0, big=False, zero_k=0,
+               dtype=torch.int8, view=None, seed=0):
+    rng = np.random.default_rng(seed)
+    bitmap = (rng.random((n, f)) < 0.3).astype(np.uint8)
+    khot = np.zeros((c, f), np.int8)
+    kvec = np.zeros(c, np.int32)
+    for i in range(c):
+        cols = rng.choice(f, ks[i % len(ks)], replace=False)
+        if big:  # entries up to 127; kvec = some row's dot, so it matches
+            khot[i, cols] = rng.integers(1, 128, len(cols))
+            row = bitmap[rng.integers(n)].astype(np.int64)
+            kvec[i] = int(row @ khot[i].astype(np.int64))
+        else:
+            khot[i, cols] = 1
+            kvec[i] = len(cols)
+    kvec[:zero_k] = 0  # counts rows with a zero dot: zero-filled rows must not
+    if pads:
+        kvec[-pads:] = -1
+    bm = torch.from_numpy(bitmap).to(dev).to(dtype)
+    if view is not None:
+        bm = bm[view[0]:view[1]]
+    return [bm, torch.from_numpy(khot).to(dev), torch.from_numpy(kvec).to(dev)]
+
+
+@pytest.mark.parametrize("case", list(WGMMA_EDGES))
+def test_support_count_wgmma_edges(cuda, case):
+    spec = WGMMA_EDGES[case]
+    args = _edge_args(cuda, seed=len(case), **spec)
+    before, pads_before = launches["support_count"], pad_copies["support_count"]
+    got = support_count(*args)
+    torch.cuda.synchronize()
+    assert launches["support_count"] == before + 1
+    assert pad_copies["support_count"] == pads_before + (spec["f"] % 16 != 0)
+    want = support_count_ref(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(want.sum()) > 0  # the case exercises matches, not only zeros
+    if spec.get("pads"):
+        assert (got[-spec["pads"]:] == 0).all()
 
 
 def test_kernel_on_row_block_views(cuda):

@@ -28,7 +28,7 @@ from repro.kernels.support_count import (  # noqa: E402
 
 from repro_torch.kernels.support_count import (  # noqa: E402
     build, launches, packed_support_count, packed_support_count_ref,
-    support_count, support_count_ref,
+    support_count, support_count_ref, tma_operands,
 )
 
 BITMAP_SHAPES = [(8, 16, 4, 1), (100, 130, 70, 2), (256, 128, 128, 3),
@@ -124,6 +124,31 @@ def test_support_count_plain_mixed_k_and_pads():
     np.testing.assert_array_equal(
         support_count(_t(bitmap), _t(khot), _t(kvec)).numpy(), want)
     assert (support_count(_t(bitmap), _t(khot), _t(kvec)).numpy()[-5:] == 0).all()
+
+
+@pytest.mark.parametrize("n,f,c,k,misalign", [
+    (513, 257, 300, 5, 0), (100, 130, 70, 2, 0), (64, 1, 8, 1, 0),
+    (1200, 96, 33, 7, 0), (200, 128, 90, 3, 8)])
+def test_tma_operands_keep_counts(n, f, c, k, misalign):
+    """The CUDA wrapper's copy into TMA's layout (F up to a multiple of 16,
+    16-byte-aligned rows) leaves every count as the Pallas kernel has it."""
+    bitmap, khot, kvec = _bitmap_case(n, f, c, k, seed=n + f)
+    want = np.asarray(j_pallas(bitmap, khot, kvec, block_n=128, block_c=128,
+                               block_f=128, interpret=True))
+    b8 = _t(bitmap, torch.uint8)
+    if misalign:  # the same rows at an address 8 bytes past a 16-byte granule
+        buf = torch.zeros(n * f + 64, dtype=torch.uint8)
+        start = (-buf.data_ptr()) % 16 + misalign
+        b8 = buf[start:start + n * f].view(n, f).copy_(b8)
+    pb, pk, copied = tma_operands(b8, _t(khot, torch.int8))
+    assert copied == bool(f % 16 or misalign)
+    f16 = pb.shape[1]
+    assert pk.shape == (c, f16) and f16 % 16 == 0 and f <= f16 < f + 16
+    assert pb.data_ptr() % 16 == 0 and pk.data_ptr() % 16 == 0
+    assert not pb[:, f:].any() and not pk[:, f:].any()
+    assert pb.dtype == torch.uint8 and pk.dtype == torch.int8
+    np.testing.assert_array_equal(
+        support_count(pb, pk, _t(kvec)).numpy(), want)
 
 
 @pytest.mark.parametrize("n,w,c,k", PACKED_SHAPES)
