@@ -47,7 +47,7 @@
 
 #include <climits>
 #include <cstdint>
-#include <cuda.h>  // CUtensorMap and the driver's enums (types only)
+#include <cuda.h>  // CUtensorMap and the CUDA driver API's enums (types only)
 #include <cuda_runtime.h>
 
 namespace {
@@ -358,8 +358,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 CUtensorMapL2promotion,
                                 CUtensorMapFloatOOBfill);
 
-// The driver's cuTensorMapEncodeTiled, reached through the runtime so the
-// library needs no -lcuda.
+// The CUDA driver API's cuTensorMapEncodeTiled, reached through the
+// runtime so the library needs no -lcuda.
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
