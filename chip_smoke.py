@@ -155,9 +155,10 @@ def time_bitmap_shape(a, b, kv, int8_rate):
 
 
 def bitmap_sweep(enc, khot, kvec, int8_rate):
-    """Device time of the bitmap kernel as N grows at the main path's C and
-    F_pad, and at the last T10I4D100K C2 chunk's C: the slope is the main
-    loop's rate, the intercept the per-launch fixed cost."""
+    """Time per call of the bitmap kernel (CUDA events; at these shapes the
+    device, not the host, sets the pace) as N grows at the main path's C
+    and F_pad, and at the last T10I4D100K C2 chunk's C: the slope is the
+    main loop's rate, the intercept the fixed cost per launch."""
     import torch
     from repro_torch.kernels.support_count import support_count
 
@@ -168,20 +169,17 @@ def bitmap_sweep(enc, khot, kvec, int8_rate):
                   (BLOCK_N, last)):
         a = torch.from_numpy(enc.bitmap[:n]).to(khot.device)
         b, kv = khot[:cc], kvec[:cc]
-        dev_ms, _ = profiled_ms(lambda: support_count(a, b, kv), "support_count")
-        out.append({"n": n, "c": cc, "width": f, "device_ms": dev_ms,
-                    "share_of_bound": (2 * n * cc * f / int8_rate * 1e3 / dev_ms
-                                       if dev_ms else None)})
-    full = [r for r in out[:3] if r["device_ms"]]
-    if len(full) == 3:
-        slope = (full[2]["device_ms"] - full[0]["device_ms"]) / (
-            full[2]["n"] - full[0]["n"])
-        print(f"sweep support_count c={c} width={f}: "
-              + ", ".join(f"n={r['n']} {r['device_ms']:.4f} ms" for r in full)
-              + f"; main loop {2 * c * f / (slope * 1e-3) / 1e12:.0f} TOP/s "
-              f"({2 * c * f / (slope * 1e-3) / int8_rate * 100:.1f} % of peak), "
-              f"fixed {full[0]['device_ms'] - slope * full[0]['n']:.4f} ms per "
-              f"launch; n={BLOCK_N} c={last}: {out[3]['device_ms']} ms")
+        ms = cuda_ms(lambda: support_count(a, b, kv), reps=20)
+        out.append({"n": n, "c": cc, "width": f, "ms": ms,
+                    "share_of_bound": 2 * n * cc * f / int8_rate * 1e3 / ms})
+    lo, hi = out[0], out[2]
+    slope = (hi["ms"] - lo["ms"]) / (hi["n"] - lo["n"])
+    print(f"sweep support_count c={c} width={f}: "
+          + ", ".join(f"n={r['n']} {r['ms']:.4f} ms" for r in out[:3])
+          + f"; main loop {2 * c * f / (slope * 1e-3) / 1e12:.0f} TOP/s "
+          f"({2 * c * f / (slope * 1e-3) / int8_rate * 100:.1f} % of peak), "
+          f"fixed {lo['ms'] - slope * lo['n']:.4f} ms per launch; "
+          f"n={BLOCK_N} c={last}: {out[3]['ms']:.4f} ms")
     return out
 
 
