@@ -11,17 +11,28 @@ result line) when it fails:
    kernels from ``src/repro_torch/kernels/support_count/csrc``;
 2. every kernel against its plain PyTorch version on the card, exactly
    (counts are integers), at the shapes the main path gives it on
-   T10I4D100K (and, for the bitmap kernel, on BMS_WebView_2: F_pad = 128)
-   and at ragged shapes (C larger than a tile, mixed k with pad rows, N
-   split across blocks, a W >= 128 vocabulary, F % 16 != 0); kernel, plain
-   and library times beside the least time the card could take;
-3. a small mine on the card, every store, against brute-force counting;
+   T10I4D100K (the host loop's 32,768-candidate C2 chunk and the level
+   ladder's whole 127,264-row C2; for the bitmap kernel also
+   BMS_WebView_2's C2: F_pad = 128) and at ragged shapes (C larger than a
+   tile, mixed k with pad rows, N split across blocks, a W >= 128
+   vocabulary, F % 16 != 0); kernel, plain and library times beside the
+   least time the card could take;
+3. small mines on the card against brute-force counting: SPC through every
+   store (the kernel stores with the kernel on and off) and the level
+   ladder (``device_loop=True``) through every store;
 4. the main path: ``FrequentItemsetMiner.mine`` on T10I4D100K (scale 1.0,
    min_support 0.01) and the BMS_WebView_2 twin (scale 1.0, min_support
-   0.002), each with ``packed_bitmap`` and ``bitmap`` on their kernels and
-   with ``perfect_hash``; itemsets AND supports must agree across the three
-   stores, every kernel's launch count must equal the main path's
-   blocks x chunks, and no bitmap count may take the wrapper's pad copy.
+   0.002): SPC and the trimmed level ladder through all five stores, DPC
+   through ``packed_bitmap``, ``bitmap`` and ``perfect_hash``, and FPC
+   through the same three on BMS_WebView_2 only (on T10I4D100K its first
+   job would generate a ~2.7e9-row C4).  The kernel stores run at their
+   default switch (the kernel on CUDA tensors).  Every mine's itemsets AND
+   supports must equal the ``perfect_hash`` SPC mine's; every kernel's
+   launch count must equal what its path asks for (row blocks x candidate
+   chunks of every counting wave on the host loop; row blocks of every
+   level on the ladder, which counts a level in one pass), each kernel must
+   launch on every path, and no bitmap count may take the wrapper's pad
+   copy.
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -43,6 +54,10 @@ POPC_PER_CLK_PER_SM = 16     # 32-bit popcount issue rate, compute capability 9.
 # sheet's 1,979 TOP/s is 8,192 x 132 SMs x 1,830 MHz.
 INT8_OPS_PER_CLK_PER_SM = 8192
 BLOCK_N, CAND_BLOCK = 2048, 32_768  # the miner's default row block / chunk
+CAND_UNIT = 8  # the level ladder's candidate pad quantum
+KERNEL_OF = {"packed_bitmap": "packed_support_count", "bitmap": "support_count"}
+STORES = ["packed_bitmap", "bitmap", "perfect_hash", "sorted_prefix",
+          "hash_bucket"]
 
 
 def smi(fields: str) -> str:
@@ -183,6 +198,35 @@ def bitmap_sweep(enc, khot, kvec, int8_rate):
     return out
 
 
+def time_packed_shape(a, b, kv, sm_rate):
+    """Times of the packed kernel and its plain version at one shape (no
+    single PyTorch call computes the same function)."""
+    from repro_torch.kernels.support_count import (
+        packed_support_count, packed_support_count_ref)
+
+    n, c, width = a.shape[0], b.shape[0], a.shape[1]
+    io_bytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
+                + 2 * c * 4)
+    ops_s = n * c * width / sm_rate
+    bytes_s = io_bytes / HBM_BYTES_PER_S
+    row = {"n": n, "c": c, "width": width,
+           "ms": cuda_ms(lambda: packed_support_count(a, b, kv), reps=20),
+           "plain_ms": cuda_ms(lambda: packed_support_count_ref(a, b, kv),
+                               reps=3, warmup=1),
+           "bound_ms": max(bytes_s, ops_s) * 1e3,
+           "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+           "library_ms": None}
+    row["device_ms"], row["host_call_ms"] = profiled_ms(
+        lambda: packed_support_count(a, b, kv), "packed_support_count")
+    print(f"time packed_support_count n={n} c={c} width={width}: kernel "
+          f"{row['ms']:.4f} ms ({100 * row['bound_ms'] / row['ms']:.1f} % of "
+          f"bound {row['bound_ms']:.4f} ms, {row['bound_by']}), plain "
+          f"{row['plain_ms']:.4f} ms, library none; profiler device "
+          f"{row['device_ms']} ms per launch, host {row['host_call_ms']:.4f} "
+          "ms per call")
+    return row
+
+
 def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
     """Every kernel vs its plain version on the card; returns JSON rows."""
     import numpy as np
@@ -198,25 +242,38 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
 
     dev = torch.device("cuda")
 
-    def first_c2_chunk(e):
-        """The main path's first C2 chunk of an encoded DB, on the card."""
-        c2 = apriori_gen_matrix(np.arange(e.n_items, dtype=np.int32)[:, None])
-        return torch.from_numpy(pad_candidates(c2[:CAND_BLOCK], e.f_pad)).to(dev)
+    def c2_of(e):
+        return apriori_gen_matrix(np.arange(e.n_items, dtype=np.int32)[:, None])
 
-    # The main path's first C2 chunk against its first row block.
-    cand = first_c2_chunk(enc)
+    def first_c2_chunk(e):
+        """The host loop's first C2 chunk of an encoded DB, on the card."""
+        return torch.from_numpy(pad_candidates(c2_of(e)[:CAND_BLOCK],
+                                               e.f_pad)).to(dev)
+
+    def ladder_c2(e):
+        """The level ladder's C2 of an encoded DB: every pair in one pass,
+        padded to CAND_UNIT rows with the always-zero column."""
+        c2 = c2_of(e)
+        out = np.full((-(-len(c2) // CAND_UNIT) * CAND_UNIT, 2), e.f_pad - 1,
+                      np.int32)
+        out[:len(c2)] = c2
+        return torch.from_numpy(out).to(dev)
+
+    # The main path's C2 chunks against its first row block.  On CUDA
+    # tensors both stores encode for their kernels by default.
+    cand, cand_l = first_c2_chunk(enc), ladder_c2(enc)
     packed = torch.from_numpy(enc.packed[:BLOCK_N]).to(dev)
     bitmap = torch.from_numpy(enc.bitmap[:BLOCK_N]).to(dev)
     bitmap_bms = torch.from_numpy(enc_bms.bitmap[:BLOCK_N]).to(dev)
-    saved = PackedBitmapStore.use_kernel, BitmapMXUStore.use_kernel
-    PackedBitmapStore.use_kernel = BitmapMXUStore.use_kernel = True
-    try:
-        pc = PackedBitmapStore.encode_candidates(cand, f_pad=enc.f_pad)
-        bc = BitmapMXUStore.encode_candidates(cand, f_pad=enc.f_pad)
-        bc_bms = BitmapMXUStore.encode_candidates(first_c2_chunk(enc_bms),
-                                                  f_pad=enc_bms.f_pad)
-    finally:
-        PackedBitmapStore.use_kernel, BitmapMXUStore.use_kernel = saved
+    pc = PackedBitmapStore.encode_candidates(cand, f_pad=enc.f_pad)
+    pc_l = PackedBitmapStore.encode_candidates(cand_l, f_pad=enc.f_pad)
+    bc = BitmapMXUStore.encode_candidates(cand, f_pad=enc.f_pad)
+    bc_l = BitmapMXUStore.encode_candidates(cand_l, f_pad=enc.f_pad)
+    bc_bms = BitmapMXUStore.encode_candidates(first_c2_chunk(enc_bms),
+                                              f_pad=enc_bms.f_pad)
+    if "packed" not in pc or bc["khot"].dtype != torch.int8:
+        raise AssertionError("default switch: CUDA tensors not encoded for "
+                             "the kernels")
 
     def packed_case(n, w, c, ks, pads):
         f = w * 32
@@ -249,6 +306,7 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
          "source": "src/repro_torch/kernels/support_count/csrc/packed_support_count.cu",
          "replaces": "src/repro/kernels/support_count/packed.py:65",
          "main": (packed, pc["packed"], pc["kvec"]),
+         "ladder": (packed, pc_l["packed"], pc_l["kvec"]),
          "ragged": [packed_case(513, 9, 300, [5], 0),
                     packed_case(64, 16, 1024, [4], 0),
                     packed_case(100, 5, 70, [2, 3, 4], 7),
@@ -258,6 +316,7 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
          "source": "src/repro_torch/kernels/support_count/csrc/support_count.cu",
          "replaces": "src/repro/kernels/support_count/kernel.py:51",
          "main": (bitmap, bc["khot"], bc["kvec"]),
+         "ladder": (bitmap, bc_l["khot"], bc_l["kvec"]),
          "more": [(bitmap_bms, bc_bms["khot"], bc_bms["kvec"])],
          "ragged": [bitmap_case(513, 257, 300, [5], 0),
                     bitmap_case(100, 130, 70, [2], 0),
@@ -271,7 +330,8 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
     rows = []
     for spec in specs:
         err = 0
-        for args in [spec["main"], *spec.get("more", []), *spec["ragged"]]:
+        for args in [spec["main"], spec["ladder"], *spec.get("more", []),
+                     *spec["ragged"]]:
             got = spec["kernel"](*args)
             torch.cuda.synchronize()
             want = spec["plain"](*args)
@@ -279,79 +339,172 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
             err = max(err, case_err)
             print(f"compare {spec['name']} {[tuple(a.shape) for a in args]}: "
                   f"max_abs_err {case_err}, hits {int(want.sum())}")
+            del got, want
         if err:
             raise AssertionError(f"{spec['name']} disagrees with its plain "
                                  f"version (max_abs_err {err})")
         row = {"name": spec["name"], "route": "cuda", "source": spec["source"],
                "replaces": spec["replaces"], "launches": 0, "max_abs_err": err}
-        a, b, kv = spec["main"]
+        keys = ["ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "device_ms", "host_call_ms"]
         if spec["name"] == "support_count":
-            shapes = [time_bitmap_shape(*args, int8_rate)
-                      for args in [spec["main"], *spec["more"]]]
-            row.update({k: shapes[0][k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "library_int8_ms", "device_ms", "host_call_ms")})
-            row["shape"] = {k: shapes[0][k] for k in ("n", "c", "width")}
-            row["more_shapes"] = shapes[1:]
-            row["sweep"] = bitmap_sweep(enc, b, kv, int8_rate)
-            rows.append(row)
-            continue
-        n, c, width = a.shape[0], b.shape[0], a.shape[1]
-        ms = cuda_ms(lambda: spec["kernel"](a, b, kv), reps=20)
-        plain_ms = cuda_ms(lambda: spec["plain"](a, b, kv), reps=3, warmup=1)
-        io_bytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
-                    + 2 * c * 4)
-        ops_s = n * c * width / sm_rate
-        bytes_s = io_bytes / HBM_BYTES_PER_S
-        device_ms, host_call_ms = profiled_ms(
-            lambda: spec["kernel"](a, b, kv), "packed_support_count")
-        row.update({
-            "ms": ms, "plain_ms": plain_ms, "device_ms": device_ms,
-            "host_call_ms": host_call_ms,
-            "bound_ms": max(bytes_s, ops_s) * 1e3,
-            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
-            "library_ms": None,
-            "shape": {"n": n, "c": c, "width": width},
-        })
+            def timed(args):
+                return time_bitmap_shape(*args, int8_rate)
+            keys.append("library_int8_ms")
+        else:
+            def timed(args):
+                return time_packed_shape(*args, sm_rate)
+        shapes = [timed(args) for args in [spec["main"], spec["ladder"],
+                                           *spec.get("more", [])]]
+        row.update({k: shapes[0][k] for k in keys})
+        row["shape"] = {k: shapes[0][k] for k in ("n", "c", "width")}
+        row["ladder_shape"] = shapes[1]
+        if spec["name"] == "support_count":
+            row["more_shapes"] = shapes[2:]
+            row["sweep"] = bitmap_sweep(enc, spec["main"][1], spec["main"][2],
+                                        int8_rate)
         rows.append(row)
-        print(f"time {spec['name']} n={n} c={c} width={width}: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']}), library none; profiler device {device_ms} ms "
-              f"per launch, host {host_call_ms:.4f} ms per call")
     return rows
 
 
-def mine(db, min_support, store, use_kernel):
+class WaveLog:
+    """Records the candidate count of every counting wave the engine is
+    asked for while it is active, so the expected launches of the host-loop
+    paths follow from the waves (SPC: one per level; FPC/DPC: several per
+    job)."""
+
+    def __enter__(self):
+        from repro_torch.core.runtime.engine import MapReduceEngine
+
+        self.sizes = []
+        self._cls = MapReduceEngine
+        self._orig = orig = MapReduceEngine.count_candidates_async
+
+        def logged(engine, cand):
+            self.sizes.append(len(cand))
+            return orig(engine, cand)
+
+        MapReduceEngine.count_candidates_async = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.count_candidates_async = self._orig
+
+
+def mine(db, min_support, store, use_kernel=None, **options):
+    """One mine on the card; ``use_kernel`` sets a kernel store's switch
+    (None, its default, counts through the kernel on CUDA tensors)."""
     from repro_torch.core.miner import FrequentItemsetMiner
     from repro_torch.core.stores import ARRAY_STORES
 
     cls = ARRAY_STORES[store]
-    saved = getattr(cls, "use_kernel", None)
-    if saved is not None:
-        cls.use_kernel = use_kernel
+    switch = hasattr(cls, "use_kernel")
+    if switch:
+        saved, cls.use_kernel = cls.use_kernel, use_kernel
     try:
         t0 = time.perf_counter()
         res = FrequentItemsetMiner(min_support=min_support, store=store,
-                                   device="cuda").mine(db)
+                                   device="cuda", **options).mine(db)
         return res, time.perf_counter() - t0
     finally:
-        if saved is not None:
+        if switch:
             cls.use_kernel = saved
 
 
 def small_check(get_dataset, brute_force_frequent):
-    """A small mine through every store on the card vs brute force."""
+    """Small mines on the card vs brute force: SPC through every store (the
+    kernel stores with the kernel on and off) and the ladder through every
+    store."""
     db = get_dataset("T10I4D100K", scale=0.002, seed=0)
     want = brute_force_frequent(db, math.ceil(0.02 * len(db)))
-    for store, uk in (("packed_bitmap", True), ("bitmap", True),
-                      ("packed_bitmap", False), ("bitmap", False),
-                      ("perfect_hash", False)):
-        res, _ = mine(db, 0.02, store, uk)
+    runs = [(store, None, {}) for store in STORES]
+    runs += [(store, False, {}) for store in KERNEL_OF]
+    runs += [(store, None, {"device_loop": True}) for store in STORES]
+    for store, uk, options in runs:
+        res, _ = mine(db, 0.02, store, uk, **options)
         if res.itemsets != want:
-            raise AssertionError(f"{store} (kernel={uk}) disagrees with brute "
-                                 "force on T10I4D100K scale 0.002")
+            raise AssertionError(f"{store} (kernel={uk}, {options}) disagrees "
+                                 "with brute force on T10I4D100K scale 0.002")
     print(f"small check: T10I4D100K scale 0.002 min_support 0.02, "
-          f"{len(want)} itemsets, every store == brute force")
+          f"{len(want)} itemsets, SPC (every store, kernels on and off) and "
+          "device_loop=True (every store) == brute force")
+
+
+def main_path(workloads):
+    """Phase 4: every path and store on both workloads.  Launch counts are
+    zeroed just before each mine and read just after it."""
+    from repro_torch.kernels.support_count import (
+        launches, pad_copies, reset_launches)
+
+    runs = [("spc", {}, STORES), ("ladder", {"device_loop": True}, STORES),
+            ("dpc", {"strategy": "dpc"}, STORES[:3]),
+            ("fpc", {"strategy": "fpc"}, STORES[:3])]
+    mines = []
+    by_path = {path: {k: 0 for k in launches} for path, _, _ in runs}
+    for name, support, db in workloads:
+        for path, options, stores in runs:
+            if path == "fpc" and name == "T10I4D100K":
+                continue
+            for store in stores:
+                with WaveLog() as waves:
+                    reset_launches()
+                    res, wall = mine(db, support, store, **options)
+                    got = dict(launches)
+                if pad_copies["support_count"]:
+                    raise AssertionError(f"{store}: {pad_copies} pad copies "
+                                         "on the main path")
+                if path == "ladder":
+                    expected = sum(math.ceil(p.n_pad / BLOCK_N)
+                                   for p in res.levels[1:])
+                else:
+                    blocks = math.ceil(res.n_transactions / BLOCK_N)
+                    expected = blocks * sum(math.ceil(c / CAND_BLOCK)
+                                            for c in waves.sizes)
+                want = {k: (expected if k == KERNEL_OF.get(store) else 0)
+                        for k in got}
+                print(f"mine {name} min_support={support} path={path} "
+                      f"store={store}: {len(res.itemsets)} itemsets, wall "
+                      f"{wall:.3f} s, launches {got} (expected {want})")
+                for p in res.levels:
+                    print(f"  level k={p.k} candidates={p.n_candidates} "
+                          f"frequent={p.n_frequent} seconds={p.seconds:.4f} "
+                          f"gen={p.gen_seconds:.4f} encode={p.encode_seconds:.4f} "
+                          f"count={p.count_seconds:.4f} trim={p.reduce_seconds:.4f} "
+                          f"n_pad={p.n_pad} f_pad={p.f_pad} "
+                          f"inflight={p.inflight_depth}")
+                if got != want:
+                    raise AssertionError(f"{path} {store}: launches {got} != "
+                                         f"{want}")
+                for k in got:
+                    by_path[path][k] += got[k]
+                mines.append({"dataset": name, "min_support": support,
+                              "path": path, "store": store, "wall_s": wall,
+                              "n_itemsets": len(res.itemsets), "launches": got,
+                              "waves": waves.sizes,
+                              "levels": [[p.k, p.n_candidates, p.n_frequent,
+                                          p.seconds, p.gen_seconds,
+                                          p.encode_seconds, p.count_seconds,
+                                          p.reduce_seconds, p.n_pad, p.f_pad]
+                                         for p in res.levels],
+                              "_itemsets": res.itemsets})
+        this = [m for m in mines if m["dataset"] == name]
+        base = next(m["_itemsets"] for m in this
+                    if (m["path"], m["store"]) == ("spc", "perfect_hash"))
+        if not base:
+            raise AssertionError(f"{name}: no frequent itemsets")
+        for m in this:
+            if m.pop("_itemsets") != base:
+                raise AssertionError(f"{name}: {m['path']} {m['store']} "
+                                     "itemsets/supports differ from the "
+                                     "perfect_hash SPC mine")
+        print(f"agree {name}: {len(base)} itemsets, max k "
+              f"{max(len(s) for s in base)}, identical supports across "
+              f"{len(this)} mines (every path and store)")
+    for path, counts in by_path.items():
+        for k, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"{k} never launched on the {path} path")
+    return mines, by_path
 
 
 def main() -> int:
@@ -369,8 +522,7 @@ def main() -> int:
     import numpy as np
     from repro_torch.core.itemsets import brute_force_frequent
     from repro_torch.data import get_dataset
-    from repro_torch.kernels.support_count import (
-        build, launches, pad_copies, reset_launches)
+    from repro_torch.kernels.support_count import build
 
     t_start = time.perf_counter()
     card = smi("name,power.limit")
@@ -414,58 +566,11 @@ def main() -> int:
     rows = kernel_phase(enc, enc_bms, np.random.default_rng(0), sm_rate,
                         int8_rate)
 
-    # Phase 3: a small mine against brute force.
+    # Phase 3: small mines against brute force.
     small_check(get_dataset, brute_force_frequent)
 
-    # Phase 4: the main path, counts read just after it.
-    mines = []
-    total = {name: 0 for name in launches}
-    for name, support, db in workloads:
-        results = {}
-        for store, uk in (("packed_bitmap", True), ("bitmap", True),
-                          ("perfect_hash", False)):
-            reset_launches()
-            res, wall = mine(db, support, store, uk)
-            got = dict(launches)
-            if pad_copies["support_count"]:
-                raise AssertionError(f"{store}: {pad_copies} pad copies on "
-                                     "the main path")
-            for k in total:
-                total[k] += got[k]
-            n = res.n_transactions
-            blocks = math.ceil(n / min(BLOCK_N, n))
-            chunks = sum(math.ceil(p.n_candidates / CAND_BLOCK)
-                         for p in res.levels[1:])
-            kname = {"packed_bitmap": "packed_support_count",
-                     "bitmap": "support_count"}.get(store)
-            want = {k: (blocks * chunks if k == kname else 0) for k in got}
-            print(f"mine {name} min_support={support} store={store} "
-                  f"kernel={uk}: {len(res.itemsets)} itemsets, wall "
-                  f"{wall:.3f} s, launches {got} (expected {want})")
-            for p in res.levels:
-                print(f"  level k={p.k} candidates={p.n_candidates} "
-                      f"frequent={p.n_frequent} seconds={p.seconds:.4f} "
-                      f"gen={p.gen_seconds:.4f} encode={p.encode_seconds:.4f} "
-                      f"count={p.count_seconds:.4f} inflight={p.inflight_depth}")
-            if got != want:
-                raise AssertionError(f"{store}: launches {got} != {want}")
-            results[store] = res
-            mines.append({"dataset": name, "min_support": support,
-                          "store": store, "kernel": uk, "wall_s": wall,
-                          "n_itemsets": len(res.itemsets), "launches": got,
-                          "levels": [[p.k, p.n_candidates, p.n_frequent,
-                                      p.seconds, p.gen_seconds,
-                                      p.encode_seconds, p.count_seconds]
-                                     for p in res.levels]})
-        ref = results["perfect_hash"].itemsets
-        for store, res in results.items():
-            if res.itemsets != ref:
-                raise AssertionError(f"{name}: {store} itemsets/supports "
-                                     "differ from perfect_hash")
-        if not ref:
-            raise AssertionError(f"{name}: no frequent itemsets")
-        print(f"agree {name}: {len(ref)} itemsets, max k "
-              f"{max(len(s) for s in ref)}, identical supports across stores")
+    # Phase 4: the main path, counts read just after each mine.
+    mines, by_path = main_path(workloads)
     # Host phases of the T10I4D100K mine that no JobProfile row holds: the
     # ingest pass and the speculative C3 generated while C2 counts.
     from repro_torch.core.itemsets import apriori_gen_matrix
@@ -483,9 +588,8 @@ def main() -> int:
           f"{n_spec} rows in {spec_s:.3f} s")
 
     for row in rows:
-        row["launches"] = total[row["name"]]
-        if row["launches"] <= 0:
-            raise AssertionError(f"{row['name']} never launched on the main path")
+        row["launches"] = sum(counts[row["name"]] for counts in by_path.values())
+        row["launches_by_path"] = {p: c[row["name"]] for p, c in by_path.items()}
 
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}

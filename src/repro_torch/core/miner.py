@@ -6,19 +6,23 @@ the database into a runner, submits Job1 (the 1-itemset histogram),
 dense-remaps over the frequent items, and iterates a strategy, which owns
 the per-level counting jobs.  It takes the JAX miner's arguments plus
 ``device`` (default ``"cuda"``; a CUDA-less machine raises unless the caller
-asks for ``"cpu"``).  The mesh, candidate sharding, per-level checkpoints,
-the fused device loop and caller-supplied runners are not ported yet and
-raise ``NotImplementedError``.
+asks for ``"cpu"``).  ``device_loop=True`` runs the SPC levels as the
+device-resident ladder (``runtime/device_loop.py``), trimming the DB per
+level when ``trim``.  The mesh, candidate sharding, per-level checkpoints
+and caller-supplied runners are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.core.itemsets import Itemset
+from repro_torch.core.runtime import device_loop as _dl
 from repro_torch.core.runtime import strategies
 from repro_torch.core.runtime.engine import resolve_device
 from repro_torch.core.runtime.job import JobProfile
@@ -70,7 +74,6 @@ class FrequentItemsetMiner:
                             (bool(cand_axes), "cand_axes"),
                             (data_axes not in (None, ("data",)), "data_axes"),
                             (checkpoint_dir is not None, "checkpoint_dir"),
-                            (device_loop, "device_loop=True"),
                             (runner is not None, "runner=")):
             if given:
                 raise NotImplementedError(f"{what} is not yet ported")
@@ -84,8 +87,16 @@ class FrequentItemsetMiner:
         # async queue depth"; unset means the fixed default of 1.
         self.inflight = 1 if inflight is _UNSET else inflight
         self.encode_ahead = encode_ahead if encode_ahead is not None else 2
-        # elastic_restarts and trim act only with a mesh / the fused device
-        # loop, both refused above; they are accepted for the same signature.
+        if device_loop and strategy != "spc":
+            # The ladder *is* the SPC schedule fused on the device: FPC/DPC's
+            # speculative combined waves have no fused counterpart.
+            raise ValueError(
+                "device_loop=True fuses the SPC level loop on the device; "
+                f"it cannot run the {strategy!r} strategy")
+        self.device_loop = device_loop
+        self.trim = trim
+        # elastic_restarts acts only with a mesh, refused above; it is
+        # accepted for the same signature.
         self.device = resolve_device(device)
 
     def _make_runner(self) -> BaseRunner:
@@ -121,7 +132,10 @@ class FrequentItemsetMiner:
         # Dense re-encode over frequent items only (Apriori property: no
         # candidate may contain an infrequent item) and make the DB resident.
         runner.place(item_map)
-        combiner = strategies.get(self.strategy)
+        if self.device_loop:
+            combiner = functools.partial(_dl.ladder, trim=self.trim)
+        else:
+            combiner = strategies.get(self.strategy)
         for stats, freq_dense in combiner(
             runner, level_mat, min_count, start_k=2, max_k=self.max_k
         ):

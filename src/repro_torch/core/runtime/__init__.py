@@ -4,8 +4,9 @@
 ``engine.py``       the single-device counting core with the async
                     double-buffered chunk queue and the device-side Job1.
 ``runners.py``      ``BaseRunner`` and ``TorchRunner`` (one device).
-``strategies.py``   the SPC level-wise scheduler.
-``device_loop.py``  the device-side SPC cut-back filter.
+``strategies.py``   the SPC, FPC and DPC level-wise schedulers.
+``device_loop.py``  the device-resident level ladder (``device_loop=True``)
+                    and the device-side SPC cut-back filter.
 ``cache.py``        the shared encoded-dataset cache (``DATASET_CACHE``).
 """
 
@@ -15,7 +16,12 @@ from repro_torch.core.runtime.cache import (
     EncodedDatasetCache,
     dataset_digest,
 )
-from repro_torch.core.runtime.device_loop import filter_candidates_device
+from repro_torch.core.runtime.device_loop import (
+    LevelLadder,
+    apriori_gen_device,
+    filter_candidates_device,
+    join_pair_count,
+)
 from repro_torch.core.runtime.engine import (
     MapReduceEngine,
     PendingCounts,
@@ -29,7 +35,10 @@ __all__ = [
     "DATASET_CACHE",
     "EncodedDatasetCache",
     "dataset_digest",
+    "LevelLadder",
+    "apriori_gen_device",
     "filter_candidates_device",
+    "join_pair_count",
     "MapReduceEngine",
     "PendingCounts",
     "resolve_device",

@@ -86,6 +86,11 @@ class PendingCounts:
 
 
 class MapReduceEngine:
+    # One device: the level ladder's pad formulas take these from the
+    # JAX package's mesh-aware engine.
+    n_data_shards = 1
+    n_cand_shards = 1
+
     def __init__(
         self,
         store: str = "perfect_hash",

@@ -1,21 +1,28 @@
 """Pass-combining strategies for the level-wise loop (PyTorch port).
 
 SPC (Single Pass Counting) is the paper's own driver: one counting job per
-level k.  On async runners the next level's candidates are generated
+level k.  FPC (Fixed Passes Combined-counting) counts a fixed number of
+consecutive candidate generations in one job; DPC (Dynamic Passes
+Combined-counting) extends the combined wave until a candidate budget is
+hit.  Combined waves generate C_{k+1} from the *candidates* C_k
+(speculative): fewer jobs against more, possibly useless, candidates.
+
+On async runners the next level's SPC candidates are generated
 *speculatively* from C_k while the device counts, then cut back exactly to
 ``apriori_gen_matrix(L_k)`` once counts arrive (``filter_candidates`` keeps a
 superset row iff every k-subset is frequent), so results are identical to
-the sequential schedule at any ``inflight`` depth.
+the sequential schedule at any ``inflight`` depth.  A combined job's waves
+go out as separate ``count_async`` jobs, all outstanding at once in the
+engine's FIFO, and are resolved in dispatch order.
 
 Levels travel as (C, k) int32 matrices; each strategy is a generator
-yielding ``(JobProfile, {itemset: count})`` per counting job.  FPC and DPC
-(combined multi-level waves) are not ported yet.
+yielding ``(JobProfile, {itemset: count})`` per counting job.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -24,7 +31,7 @@ from repro_torch.core.itemsets import (
     apriori_gen_matrix,
     level_to_matrix,
 )
-from repro_torch.core.runtime.job import CountJob
+from repro_torch.core.runtime.job import CountJob, JobProfile
 
 
 def _as_matrix(level) -> np.ndarray:
@@ -87,14 +94,114 @@ def spc(runner, level, min_count: int, start_k: int, max_k: int):
         k += 1
 
 
+def _combined(runner, level, min_count, start_k, max_k, should_extend):
+    """Shared FPC/DPC body: one job counts a wave of candidate levels.
+
+    Wave j+1 is generated from wave j's *candidates*, so on async runners
+    generation overlaps the device counting of the wave just dispatched.
+    """
+    mat = _as_matrix(level)
+    k = start_k
+    while mat.size and k <= max_k:
+        t0 = time.perf_counter()
+        gen_s = 0.0
+        tg = time.perf_counter()
+        cand = apriori_gen_matrix(mat)
+        gen_s += time.perf_counter() - tg
+        waves: List[np.ndarray] = []
+        pendings: List = []
+        while cand.size:
+            waves.append(cand)
+            pendings.append(runner.count_async(CountJob(
+                k=k + len(waves) - 1, cand=cand, min_count=min_count,
+                level=mat if len(waves) == 1 else None,
+            )))
+            if k + len(waves) - 1 >= max_k or not should_extend(waves):
+                break
+            tg = time.perf_counter()
+            cand = apriori_gen_matrix(cand)  # speculative: join/prune against C_k
+            gen_s += time.perf_counter() - tg
+        if not waves:
+            return
+        n_cands = sum(w.shape[0] for w in waves)
+        # Mixed k in one job: each wave is its own dispatch (one logical
+        # job); resolve in dispatch order and merge.
+        frequent: Dict[Itemset, int] = {}
+        encode_s = count_s = reduce_s = build_s = runner_gen_s = 0.0
+        inflight_depth = inflight_retunes = 0
+        retries = spec_launches = spec_wins = 0
+        backoff_s = 0.0
+        mappers: List[float] = []
+        for wave, pending in zip(waves, pendings):
+            counts, prof = pending.result()
+            keep = counts >= min_count
+            frequent.update(_to_dict(wave[keep], counts[keep]))
+            encode_s += prof.encode_seconds
+            count_s += prof.count_seconds
+            reduce_s += prof.reduce_seconds
+            build_s += prof.build_seconds
+            runner_gen_s += prof.gen_seconds
+            retries += prof.retries
+            spec_launches += prof.speculative_launches
+            spec_wins += prof.speculative_wins
+            backoff_s += prof.backoff_seconds
+            inflight_depth = max(inflight_depth, prof.inflight_depth)
+            # Cumulative engine counter: the latest wave carries the total.
+            inflight_retunes = max(inflight_retunes, prof.inflight_retunes)
+            if prof.mapper_seconds:  # combined job: mapper slots add up
+                mappers = [a + b for a, b in zip(mappers, prof.mapper_seconds)] \
+                    if mappers else list(prof.mapper_seconds)
+        # Mapper-model runners report their own (max-over-mappers) gen; the
+        # miner's host-side gen is only attributed on engine-backed runners.
+        gen_s = runner_gen_s if mappers else gen_s + runner_gen_s
+        # Downward closure across the combined wave: a (k+1)-itemset counted
+        # speculatively is kept only if all its k-subsets survived.
+        frequent = _closure_filter(frequent)
+        stats = JobProfile(
+            k=k + len(waves) - 1, n_candidates=n_cands,
+            n_frequent=len(frequent), seconds=time.perf_counter() - t0,
+            gen_seconds=gen_s, build_seconds=build_s, encode_seconds=encode_s,
+            count_seconds=count_s, reduce_seconds=reduce_s,
+            mapper_seconds=mappers, inflight_depth=inflight_depth,
+            inflight_retunes=inflight_retunes, retries=retries,
+            speculative_launches=spec_launches, speculative_wins=spec_wins,
+            backoff_seconds=backoff_s,
+        )
+        yield stats, frequent
+        top_k = max((len(s) for s in frequent), default=0)
+        mat = level_to_matrix([s for s in frequent if len(s) == top_k])
+        k = top_k + 1 if frequent else k + len(waves)
+
+
+def _closure_filter(frequent: Dict[Itemset, int]) -> Dict[Itemset, int]:
+    if not frequent:
+        return frequent
+    keep: Dict[Itemset, int] = {}
+    ks = sorted({len(s) for s in frequent})
+    surviving = {s for s in frequent if len(s) == ks[0]}
+    keep.update({s: frequent[s] for s in surviving})
+    for k in ks[1:]:
+        for s in (x for x in frequent if len(x) == k):
+            if all(s[:i] + s[i + 1:] in surviving for i in range(k)):
+                keep[s] = frequent[s]
+        surviving = {s for s in keep if len(s) == k}
+    return keep
+
+
 def fpc(runner, level, min_count, start_k, max_k, passes: int = 3):
-    """Fixed number of combined passes per job (not ported yet)."""
-    raise NotImplementedError("not yet ported")
+    """Fixed number of combined passes per job."""
+    return _combined(
+        runner, level, min_count, start_k, max_k,
+        should_extend=lambda waves: len(waves) < passes,
+    )
 
 
 def dpc(runner, level, min_count, start_k, max_k, budget: int = 50_000):
-    """Combined waves within a candidate budget (not ported yet)."""
-    raise NotImplementedError("not yet ported")
+    """Extend the wave while the combined candidate count stays in budget."""
+    return _combined(
+        runner, level, min_count, start_k, max_k,
+        should_extend=lambda waves: sum(w.shape[0] for w in waves) < budget,
+    )
 
 
 _STRATEGIES = {"spc": spc, "fpc": fpc, "dpc": dpc}

@@ -170,6 +170,25 @@ def dense_remap_padded(padded: np.ndarray, item_map: np.ndarray,
     return np.ascontiguousarray(dense[:, :max(1, width)])
 
 
+class KernelSwitchMixin:
+    """The counting-path switch of a store with a hand-written kernel.
+
+    ``use_kernel = None`` (the default) counts through the kernel when the
+    tensors lie on a CUDA device and through the plain PyTorch path when
+    they lie on the CPU; ``True`` / ``False`` force one path (on CPU tensors
+    the kernel's wrapper computes with its plain version).  The encode and
+    the count both decide from their tensors' device, so they always agree
+    on the layout."""
+
+    use_kernel = None
+
+    @classmethod
+    def kernel_on(cls, device) -> bool:
+        if cls.use_kernel is None:
+            return torch.device(device).type == "cuda"
+        return bool(cls.use_kernel)
+
+
 class DeltaCountMixin:
     """Incremental counting over transaction *blocks*: support counts are
     additive over disjoint transaction sets, so ``count(window') =

@@ -1,11 +1,11 @@
 """Bitmap store: containment as a matrix product.
 
 Transactions are multi-hot rows T (N, F); candidates are k-hot rows C (Cc, F).
-Containment is arithmetic: ``(T @ C^T)[n, c] == k_c``.  ``use_kernel=True``
-routes ``count_block`` to the hand-written int8 tensor-core kernel
-(``repro_torch.kernels.support_count.support_count``; on CPU tensors its
-plain version), which fuses the compare and the column sum; otherwise a
-plain float32 PyTorch product counts.
+Containment is arithmetic: ``(T @ C^T)[n, c] == k_c``.  On CUDA tensors
+``count_block`` goes through the hand-written int8 tensor-core kernel
+(``repro_torch.kernels.support_count.support_count``), which fuses the
+compare and the column sum; on CPU tensors a plain float32 PyTorch product
+counts.  ``use_kernel`` (``KernelSwitchMixin``) can force either path.
 """
 
 from __future__ import annotations
@@ -13,7 +13,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.stores.base import DeltaCountMixin, EncodedDB
+from repro_torch.core.stores.base import (
+    DeltaCountMixin, EncodedDB, KernelSwitchMixin,
+)
 
 
 def candidates_to_khot(cand: np.ndarray, f_pad: int) -> tuple:
@@ -28,13 +30,20 @@ def candidates_to_khot(cand: np.ndarray, f_pad: int) -> tuple:
     return khot, kvec
 
 
-class BitmapMXUStore(DeltaCountMixin):
+class BitmapMXUStore(KernelSwitchMixin, DeltaCountMixin):
     name = "bitmap"
-    use_kernel = False  # True: count through the hand-written CUDA kernel
 
     @staticmethod
     def transaction_inputs(enc: EncodedDB) -> dict:
         return {"bitmap": enc.bitmap}
+
+    @staticmethod
+    def device_transaction_inputs(padded: torch.Tensor,
+                                  bitmap: torch.Tensor) -> dict:
+        """``transaction_inputs`` from the device-resident (N, L) padded ids
+        and (N, F_pad) bitmap: the level ladder rebuilds the store tensors on
+        the device after every trim."""
+        return {"bitmap": bitmap}
 
     @classmethod
     def encode_candidates(cls, cand: torch.Tensor, *, f_pad: int) -> dict:
@@ -46,7 +55,8 @@ class BitmapMXUStore(DeltaCountMixin):
         khot.scatter_add_(1, cand.to(torch.int64),
                           torch.ones((c, k), dtype=torch.int32,
                                      device=cand.device))
-        khot = khot.to(torch.int8 if cls.use_kernel else torch.float32)
+        khot = khot.to(torch.int8 if cls.kernel_on(cand.device)
+                       else torch.float32)
         kvec = torch.full((c,), k, dtype=torch.int32, device=cand.device)
         return {"khot": khot, "kvec": kvec}
 
@@ -58,7 +68,7 @@ class BitmapMXUStore(DeltaCountMixin):
 
     @classmethod
     def count_block(cls, trans: dict, cands: dict) -> torch.Tensor:
-        if cls.use_kernel:
+        if cls.kernel_on(trans["bitmap"].device):
             from repro_torch.kernels.support_count import support_count
 
             return support_count(trans["bitmap"], cands["khot"], cands["kvec"])

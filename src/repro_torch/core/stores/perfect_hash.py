@@ -23,6 +23,14 @@ class PerfectHashStore(DeltaCountMixin):
         return {"bitmap": enc.bitmap}
 
     @staticmethod
+    def device_transaction_inputs(padded: torch.Tensor,
+                                  bitmap: torch.Tensor) -> dict:
+        """``transaction_inputs`` from the device-resident (N, L) padded ids
+        and (N, F_pad) bitmap: the level ladder rebuilds the store tensors on
+        the device after every trim."""
+        return {"bitmap": bitmap}
+
+    @staticmethod
     def encode_candidates(cand: torch.Tensor, *, f_pad: int) -> dict:
         return {"cand": cand}
 

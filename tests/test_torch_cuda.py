@@ -9,8 +9,11 @@ neither JAX nor ``repro``, so it runs where only PyTorch is installed:
 Each kernel is held exactly against its plain PyTorch version on the same
 device (counts are integers), on ragged shapes, C larger than a tile, mixed
 k with kvec = -1 pad rows, and wide vocabularies; the bitmap kernel also on
-the edges of its TMA/wgmma design (``WGMMA_EDGES``).  A small mine through
-each store on the card is held against brute-force counting.
+the edges of its TMA/wgmma design (``WGMMA_EDGES``).  Small mines through
+each store on the card (host loop and level ladder) are held against
+brute-force counting, the trie and hash-tree stores against
+``perfect_hash``, and a mine with the default kernel switch must move the
+kernel's launch counter.
 """
 
 import math
@@ -21,7 +24,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.itemsets import brute_force_frequent  # noqa: E402
+from repro_torch.core.itemsets import level_to_matrix  # noqa: E402
 from repro_torch.core.miner import FrequentItemsetMiner  # noqa: E402
+from repro_torch.core.runtime.runners import TorchRunner  # noqa: E402
 from repro_torch.core.stores import ARRAY_STORES, pack_bitmap  # noqa: E402
 from repro_torch.core.stores.packed_bitmap import pack_candidates_device  # noqa: E402
 from repro_torch.data import get_dataset  # noqa: E402
@@ -210,3 +215,56 @@ def test_small_mine_on_card_matches_brute_force(cuda, store, use_kernel,
     want = brute_force_frequent(db, math.ceil(0.02 * len(db)))
     got = FrequentItemsetMiner(min_support=0.02, store=store).mine(db)
     assert got.itemsets == want
+
+
+def _small_db():
+    db = get_dataset("T10I4D100K", scale=0.002, seed=0)
+    return db, brute_force_frequent(db, math.ceil(0.02 * len(db)))
+
+
+@pytest.mark.parametrize("store,kernel", [("packed_bitmap", "packed_support_count"),
+                                          ("bitmap", "support_count")])
+@pytest.mark.parametrize("trim", [False, True])
+def test_ladder_mine_on_card_matches_brute_force(cuda, store, kernel, trim):
+    """The level ladder through a kernel store at its default switch: the
+    kernel launches once per row block and level (one unchunked pass)."""
+    assert ARRAY_STORES[store].use_kernel is None
+    db, want = _small_db()
+    before = launches[kernel]
+    got = FrequentItemsetMiner(min_support=0.02, store=store, device_loop=True,
+                               trim=trim, block_n=64).mine(db)
+    assert got.itemsets == want
+    expected = sum(math.ceil(p.n_pad / 64) for p in got.levels[1:])
+    assert launches[kernel] - before == expected > 0
+
+
+@pytest.mark.parametrize("store,kernel", [("packed_bitmap", "packed_support_count"),
+                                          ("bitmap", "support_count")])
+def test_default_switch_mine_launches_kernel(cuda, store, kernel):
+    db, want = _small_db()
+    before = launches[kernel]
+    got = FrequentItemsetMiner(min_support=0.02, store=store).mine(db)
+    assert got.itemsets == want
+    assert launches[kernel] > before
+
+
+@pytest.mark.parametrize("store", ["sorted_prefix", "hash_bucket"])
+def test_trie_and_hash_tree_stores_match_perfect_hash(cuda, store):
+    """k = 1..4 over a DB placed on the card, with ragged row blocks and
+    candidate chunks; then a small host-loop mine against brute force."""
+    db, want = _small_db()
+    counts = {}
+    for name in (store, "perfect_hash"):
+        runner = TorchRunner(store=name, block_n=48, cand_block=1000)
+        runner.ingest(db)
+        hist, _ = runner.job1()
+        runner.place(np.nonzero(hist >= 4)[0])
+        n_items = runner.engine._enc.n_items
+        rng = np.random.default_rng(0)
+        counts[name] = [runner.engine.count_candidates(level_to_matrix(sorted(
+            {tuple(sorted(rng.choice(n_items, k, replace=False).tolist()))
+             for _ in range(3000)}))) for k in range(1, 5)]
+    for k, (got, ref) in enumerate(zip(counts[store], counts["perfect_hash"]), 1):
+        np.testing.assert_array_equal(got, ref, err_msg=f"{store} k={k}")
+        assert ref.sum() > 0 or k == 4  # k <= 3 exercises matches
+    assert FrequentItemsetMiner(min_support=0.02, store=store).mine(db).itemsets == want

@@ -14,6 +14,7 @@ from repro.core.itemsets import apriori_gen_matrix  # noqa: E402
 from repro.core.runtime.engine import MapReduceEngine as JEngine  # noqa: E402
 from repro.core.stores import encode_db as j_encode_db  # noqa: E402
 from repro.core.stores import padded_from_transactions as j_padded  # noqa: E402
+from test_torch_stores import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.core.runtime.engine import MapReduceEngine as TEngine  # noqa: E402
 from repro_torch.core.stores import ARRAY_STORES, encoded_db_from_numpy  # noqa: E402
@@ -95,6 +96,31 @@ def test_pipeline_handles_and_abandon():
         pending.result()
     empty = engine.count_candidates_async(np.zeros((0, 2), np.int32))
     assert empty.result().shape == (0,)
+
+
+@pytest.mark.parametrize("order", ["dispatch", "reverse"])
+def test_outstanding_jobs_resolve_independently(order):
+    """Several waves of different k outstanding at once in the FIFO (as a
+    combined FPC/DPC job dispatches them): resolving a later one fetches the
+    earlier ones' chunks into *their* handles, never cancels them, and every
+    handle returns its own wave's counts."""
+    jenc = j_encode_db(_db(), n_items=N_ITEMS)
+    engine = TEngine(store="packed_bitmap", block_n=64, cand_block=128,
+                     inflight=64, device="cpu")
+    engine.place(encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items))
+    c2, c3 = _wave()
+    waves = [c2, c3, c2[:5], c3[:130]]
+    handles = [engine.count_candidates_async(w) for w in waves]
+    assert len(engine._queue) == sum(-(-w.shape[0] // 128) for w in waves)
+    ref = _reference("packed_bitmap")
+    want = [ref[0], ref[1], ref[0][:5], ref[1][:130]]
+    picks = range(4) if order == "dispatch" else reversed(range(4))
+    for i in picks:
+        np.testing.assert_array_equal(handles[i].result(), want[i])
+    assert not engine._queue
+    for h, w in zip(handles, want):
+        assert not h._cancelled
+        np.testing.assert_array_equal(h.result(), w)
 
 
 def test_empty_db_counts_zero():

@@ -14,6 +14,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from test_torch_stores import one_torch_thread  # noqa: E402,F401
 
 from repro.core.stores import pack_bitmap as j_pack_bitmap  # noqa: E402
 from repro.core.stores.packed_bitmap import (  # noqa: E402
