@@ -32,7 +32,18 @@ result line) when it fails:
    chunks of every counting wave on the host loop; row blocks of every
    level on the ladder, which counts a level in one pass), each kernel must
    launch on every path, and no bitmap count may take the wrapper's pad
-   copy.
+   copy;
+5. out-of-core mining: the same two workloads written to ``.dat`` files in a
+   temporary directory (never inside the repository) and mined through
+   ``ChunkedDatasetReader`` with SPC, every job streaming every chunk.
+   T10I4D100K at ceil(N/4), ceil(N/16) and ceil(N/64) transactions per chunk
+   through ``packed_bitmap`` and ``bitmap``, and at ceil(N/4) through
+   ``perfect_hash``; BMS_WebView_2 at ceil(N/4) through the two kernel
+   stores.  Each mine's itemsets AND supports must equal the phase-4
+   ``perfect_hash`` SPC mine's, every level row must have streamed every
+   chunk, no bitmap count may take the pad copy, and each kernel's launches
+   must equal (candidate chunks of every wave) x (row blocks of every
+   transaction chunk).
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -368,27 +379,36 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
 
 
 class WaveLog:
-    """Records the candidate count of every counting wave the engine is
-    asked for while it is active, so the expected launches of the host-loop
-    paths follow from the waves (SPC: one per level; FPC/DPC: several per
-    job)."""
+    """Records the candidate count of every counting wave asked for while it
+    is active, so the expected launches of the host-loop paths follow from
+    the waves (SPC: one per level; FPC/DPC: several per job).  A resident
+    wave is one ``count_candidates_async`` call; an out-of-core wave is one
+    chunked job (``TorchRunner._count_chunked_async``), logged once however
+    many transaction chunks it streams."""
 
     def __enter__(self):
         from repro_torch.core.runtime.engine import MapReduceEngine
+        from repro_torch.core.runtime.runners import TorchRunner
 
         self.sizes = []
-        self._cls = MapReduceEngine
-        self._orig = orig = MapReduceEngine.count_candidates_async
-
-        def logged(engine, cand):
-            self.sizes.append(len(cand))
-            return orig(engine, cand)
-
-        MapReduceEngine.count_candidates_async = logged
+        self._saved = []
+        for cls, attr, cand_of in (
+                (MapReduceEngine, "count_candidates_async", lambda a: a),
+                (TorchRunner, "_count_chunked_async", lambda a: a.cand)):
+            orig = getattr(cls, attr)
+            self._saved.append((cls, attr, orig))
+            setattr(cls, attr, self._logged(orig, cand_of))
         return self
 
+    def _logged(self, orig, cand_of):
+        def logged(obj, arg):
+            self.sizes.append(len(cand_of(arg)))
+            return orig(obj, arg)
+        return logged
+
     def __exit__(self, *exc):
-        self._cls.count_candidates_async = self._orig
+        for cls, attr, orig in self._saved:
+            setattr(cls, attr, orig)
 
 
 def mine(db, min_support, store, use_kernel=None, **options):
@@ -440,6 +460,7 @@ def main_path(workloads):
             ("dpc", {"strategy": "dpc"}, STORES[:3]),
             ("fpc", {"strategy": "fpc"}, STORES[:3])]
     mines = []
+    bases = {}
     by_path = {path: {k: 0 for k in launches} for path, _, _ in runs}
     for name, support, db in workloads:
         for path, options, stores in runs:
@@ -492,6 +513,7 @@ def main_path(workloads):
                     if (m["path"], m["store"]) == ("spc", "perfect_hash"))
         if not base:
             raise AssertionError(f"{name}: no frequent itemsets")
+        bases[name] = base
         for m in this:
             if m.pop("_itemsets") != base:
                 raise AssertionError(f"{name}: {m['path']} {m['store']} "
@@ -504,7 +526,108 @@ def main_path(workloads):
         for k, n in counts.items():
             if n <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")
-    return mines, by_path
+    return mines, by_path, bases
+
+
+def out_of_core(workloads, bases):
+    """Phase 5: SPC mines of ``.dat`` files streamed through
+    ``ChunkedDatasetReader``, held to the resident ``perfect_hash`` SPC mine
+    of phase 4 (``bases``).  Launch counts are zeroed just before each mine
+    and read just after it."""
+    import shutil
+    import tempfile
+
+    from repro_torch.data import ChunkedDatasetReader, write_dat
+    from repro_torch.kernels.support_count import (
+        launches, pad_copies, reset_launches)
+
+    plans = {"T10I4D100K": [(parts, store) for parts in (4, 16, 64)
+                            for store in KERNEL_OF] + [(4, "perfect_hash")],
+             "BMS_WebView_2": [(4, store) for store in KERNEL_OF]}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ooc_")
+    mines, host = [], {}
+    by_path = {k: 0 for k in launches}
+    try:
+        for name, support, db in workloads:
+            n = len(db)
+            path = os.path.join(tmp, f"{name}.dat")
+            t0 = time.perf_counter()
+            write_dat(path, db)
+            write_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            probe = ChunkedDatasetReader(path,
+                                         chunk_transactions=math.ceil(n / 4))
+            scan_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in probe.chunks():
+                pass
+            parse_s = time.perf_counter() - t0
+            host[name] = {"write_s": write_s, "scan_s": scan_s,
+                          "parse_s": parse_s, "bytes": os.path.getsize(path)}
+            print(f"ooc {name}: .dat of {os.path.getsize(path)} bytes written "
+                  f"in {write_s:.3f} s, scan {scan_s:.3f} s, one parse pass "
+                  f"{parse_s:.3f} s")
+            for parts, store in plans[name]:
+                reader = ChunkedDatasetReader(
+                    path, chunk_transactions=math.ceil(n / parts))
+                if len(reader) != n:
+                    raise AssertionError(f"{name}: reader holds {len(reader)} "
+                                         f"of {n} transactions")
+                rows = [min(reader.chunk_transactions, n - i)
+                        for i in range(0, n, reader.chunk_transactions)]
+                with WaveLog() as waves:
+                    reset_launches()
+                    res, wall = mine(reader, support, store)
+                    got = dict(launches)
+                if pad_copies["support_count"]:
+                    raise AssertionError(f"{store}: {pad_copies} pad copies "
+                                         "out of core")
+                expected = (sum(math.ceil(c / CAND_BLOCK) for c in waves.sizes)
+                            * sum(math.ceil(r / BLOCK_N) for r in rows))
+                want = {k: (expected if k == KERNEL_OF.get(store) else 0)
+                        for k in got}
+                p1 = res.levels[0]
+                print(f"ooc {name} min_support={support} chunk="
+                      f"{reader.chunk_transactions} ({reader.n_chunks} chunks, "
+                      f"rows {rows[0]}..{rows[-1]}) store={store}: "
+                      f"{len(res.itemsets)} itemsets, wall {wall:.3f} s, job1 "
+                      f"{p1.seconds:.4f} s, levels "
+                      + ", ".join(f"k={p.k} {p.seconds:.4f} s"
+                                  for p in res.levels[1:])
+                      + f", launches {got} (expected {want})")
+                if got != want:
+                    raise AssertionError(f"ooc {name} {store}: launches {got} "
+                                         f"!= {want}")
+                if any(p.chunks != reader.n_chunks for p in res.levels):
+                    raise AssertionError(
+                        f"ooc {name} {store}: level chunks "
+                        f"{[p.chunks for p in res.levels]} != {reader.n_chunks}")
+                if res.itemsets != bases[name]:
+                    raise AssertionError(
+                        f"ooc {name} {store} chunk={reader.chunk_transactions}:"
+                        " itemsets/supports differ from the resident "
+                        "perfect_hash SPC mine")
+                for k in got:
+                    by_path[k] += got[k]
+                mines.append({"dataset": name, "min_support": support,
+                              "path": "spc_out_of_core", "store": store,
+                              "chunk_transactions": reader.chunk_transactions,
+                              "n_chunks": reader.n_chunks, "wall_s": wall,
+                              "n_itemsets": len(res.itemsets),
+                              "launches": got, "waves": waves.sizes,
+                              "levels": [[p.k, p.n_candidates, p.n_frequent,
+                                          p.seconds, p.encode_seconds,
+                                          p.count_seconds, p.chunks]
+                                         for p in res.levels]})
+            print(f"agree ooc {name}: {len(bases[name])} itemsets, identical "
+                  f"supports across {len(plans[name])} out-of-core mines and "
+                  "the resident perfect_hash SPC mine")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for k, count in by_path.items():
+        if count <= 0:
+            raise AssertionError(f"{k} never launched out of core")
+    return mines, by_path, host
 
 
 def main() -> int:
@@ -570,7 +693,11 @@ def main() -> int:
     small_check(get_dataset, brute_force_frequent)
 
     # Phase 4: the main path, counts read just after each mine.
-    mines, by_path = main_path(workloads)
+    mines, by_path, bases = main_path(workloads)
+
+    # Phase 5: out of core, held to phase 4's resident answers.
+    ooc_mines, by_path["spc_out_of_core"], ooc_host = out_of_core(workloads,
+                                                                  bases)
     # Host phases of the T10I4D100K mine that no JobProfile row holds: the
     # ingest pass and the speculative C3 generated while C2 counts.
     from repro_torch.core.itemsets import apriori_gen_matrix
@@ -596,7 +723,9 @@ def main() -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "build_s": build_s, "kernels": rows,
-                       "mines": mines, "host": host, "device": device,
+                       "mines": mines, "host": host,
+                       "out_of_core": {"mines": ooc_mines, "host": ooc_host},
+                       "device": device,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": rows}))
     print(smi("name,power.limit"))

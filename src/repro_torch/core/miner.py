@@ -6,7 +6,9 @@ the database into a runner, submits Job1 (the 1-itemset histogram),
 dense-remaps over the frequent items, and iterates a strategy, which owns
 the per-level counting jobs.  It takes the JAX miner's arguments plus
 ``device`` (default ``"cuda"``; a CUDA-less machine raises unless the caller
-asks for ``"cpu"``).  ``device_loop=True`` runs the SPC levels as the
+asks for ``"cpu"``).  ``mine`` also takes a ``ChunkedDatasetReader``, which
+streams every job through fixed-size transaction chunks (``device_loop``
+must then stay False).  ``device_loop=True`` runs the SPC levels as the
 device-resident ladder (``runtime/device_loop.py``), trimming the DB per
 level when ``trim``.  The mesh, candidate sharding, per-level checkpoints
 and caller-supplied runners are not ported yet and raise
@@ -106,8 +108,9 @@ class FrequentItemsetMiner:
 
     def mine(self, transactions: Sequence[Sequence[int]]) -> MiningResult:
         """Mine the frequent itemsets of ``transactions`` (lists of item
-        ids) at ``min_support``: itemsets in original ids with their
-        supports, and one ``JobProfile`` per counting job."""
+        ids, or a ``ChunkedDatasetReader`` to mine a ``.dat`` out of core)
+        at ``min_support``: itemsets in original ids with their supports,
+        and one ``JobProfile`` per counting job."""
         n = len(transactions)
         min_count = max(1, int(np.ceil(self.min_support * n)))
         with self._make_runner() as runner:

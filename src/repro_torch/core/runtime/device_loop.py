@@ -390,5 +390,10 @@ def ladder(runner, level, min_count: int, start_k: int, max_k: int,
     if engine is None:
         raise ValueError(
             "device_loop requires an engine-backed runner (TorchRunner)")
+    if getattr(runner, "_reader", None) is not None:
+        raise ValueError(
+            "device_loop=True needs the DB resident on the device; "
+            "out-of-core chunked ingestion streams it instead: mine "
+            "with device_loop=False (the host SPC loop)")
     lad = LevelLadder(engine, min_count, trim=trim)
     yield from lad.run(np.asarray(level, dtype=np.int32), start_k, max_k)

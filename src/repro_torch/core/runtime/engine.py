@@ -19,6 +19,9 @@ fetched to the host.  Results resolve strictly in dispatch order, so counts
 are identical at any depth; ``inflight=0`` runs chunk by chunk and
 ``inflight=None`` sizes the depth from a measured chunk.
 
+``count_block_async`` counts a wave over an ad-hoc encoded block instead of
+the placed DB (each chunk of an out-of-core mine), through the same FIFO.
+
 Job1 (the 1-itemset histogram) is a device job too: ``count_items_device``
 bincounts the padded transaction matrix.
 """
@@ -158,18 +161,19 @@ class MapReduceEngine:
         return partial
 
     # -- counting ------------------------------------------------------------
-    def _dispatch_encode(self, chunk: np.ndarray) -> dict:
+    def _dispatch_encode(self, chunk: np.ndarray, f_pad: int) -> dict:
         """Ship one padded (C, k) chunk and dispatch its device-side encode
         (nothing here waits for the device)."""
-        cand_p = pad_candidates(chunk, self._enc.f_pad)
+        cand_p = pad_candidates(chunk, f_pad)
         cand_dev = torch.from_numpy(
             np.ascontiguousarray(cand_p, dtype=np.int32)).to(self.device)
-        return self.store.encode_candidates(cand_dev, f_pad=self._enc.f_pad)
+        return self.store.encode_candidates(cand_dev, f_pad=f_pad)
 
-    def _dispatch_count(self, cands: dict):
-        """Dispatch the count of an encoded chunk; returns the device counts
-        and, on CUDA, an event recorded after them."""
-        dev = self._blocked_count(self._trans_device, cands)
+    def _dispatch_count(self, trans: dict, cands: dict):
+        """Dispatch the count of an encoded chunk over ``trans``; returns the
+        device counts and, on CUDA, an event recorded after them (every FIFO
+        entry carries one, so ``drain_ready`` never blocks on a CUDA entry)."""
+        dev = self._blocked_count(trans, cands)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -180,7 +184,7 @@ class MapReduceEngine:
         """Move the oldest encode slot into the count FIFO; drain the count
         FIFO down to ``inflight`` outstanding results."""
         slot, cands, n_valid = encoded.popleft()
-        dev, event = self._dispatch_count(cands)
+        dev, event = self._dispatch_count(self._trans_device, cands)
         self._queue.append((pending, slot, dev, n_valid, event))
         while len(self._queue) > self.inflight:
             self._force_oldest()
@@ -245,7 +249,8 @@ class MapReduceEngine:
                 self._tune_inflight(pending, slot, chunk, chunk_work)
                 ahead = self.encode_ahead if self.inflight > 0 else 0
                 continue
-            encoded.append((slot, self._dispatch_encode(chunk),
+            encoded.append((slot,
+                            self._dispatch_encode(chunk, self._enc.f_pad),
                             chunk.shape[0]))
             if len(encoded) > ahead:
                 self._count_encoded(pending, encoded)
@@ -261,7 +266,8 @@ class MapReduceEngine:
         while self._queue:
             self._force_oldest()
         t0 = time.perf_counter()
-        dev, event = self._dispatch_count(self._dispatch_encode(chunk))
+        dev, event = self._dispatch_count(
+            self._trans_device, self._dispatch_encode(chunk, self._enc.f_pad))
         submit_s = time.perf_counter() - t0
         self._queue.append((pending, slot, dev, chunk.shape[0], event))
         t0 = time.perf_counter()
@@ -278,6 +284,44 @@ class MapReduceEngine:
     def count_candidates(self, cand: np.ndarray) -> np.ndarray:
         """Blocking wrapper: (C, k) candidate matrix -> int64[C] counts."""
         return self.count_candidates_async(cand).result()
+
+    # -- counting over an ad-hoc block (out-of-core chunks, serving deltas) --
+    def count_block_async(self, enc_block: EncodedDB,
+                          cand: np.ndarray) -> PendingCounts:
+        """Count ``cand`` over an *ad-hoc* encoded transaction block instead
+        of the placed DB: the out-of-core chunk count and the serving
+        delta primitive.
+
+        The block's store tensors go to the device with the dispatch
+        (nothing is re-placed, so the resident DB is untouched); the
+        candidates go in ``cand_block`` chunks, each encoded on the device
+        and counted by ``_blocked_count`` over the block's row blocks, and
+        the results flow through the same FIFO as the wave pipeline, with
+        at most ``inflight`` outstanding.
+        """
+        cand = np.ascontiguousarray(np.asarray(cand, dtype=np.int32))
+        if cand.size == 0:
+            return PendingCounts(self, 0)
+        if enc_block.n_transactions == 0:
+            pending = PendingCounts(self, 1)
+            pending._parts[0] = np.zeros((cand.shape[0],), np.int64)
+            return pending
+        trans = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                 for k, v in self.store.transaction_inputs(enc_block).items()}
+        starts = range(0, cand.shape[0], self.cand_block)
+        pending = PendingCounts(self, len(starts))
+        for slot, i in enumerate(starts):
+            chunk = cand[i : i + self.cand_block]
+            dev, event = self._dispatch_count(
+                trans, self._dispatch_encode(chunk, enc_block.f_pad))
+            self._queue.append((pending, slot, dev, chunk.shape[0], event))
+            while len(self._queue) > self.inflight:
+                self._force_oldest()
+        return pending
+
+    def count_block(self, enc_block: EncodedDB, cand: np.ndarray) -> np.ndarray:
+        """Blocking wrapper around :meth:`count_block_async`."""
+        return self.count_block_async(enc_block, cand).result()
 
     # -- L1 (Job1: OneItemsetMapper + reducer) -------------------------------
     def count_items_device(self, padded: np.ndarray, n_items: int) -> np.ndarray:

@@ -11,8 +11,12 @@ A runner owns job execution only — drivers own *what* to count, runners own
                            ``result()`` -> (int64[C] counts, JobProfile).
 
 ``TorchRunner`` is the single-device counterpart of the JAX package's
-``JaxRunner``.  The Hadoop cost-model ``SimRunner``, the multi-device
-runner, out-of-core ingestion and fault injection are not ported yet.
+``JaxRunner``.  Given a ``ChunkedDatasetReader`` instead of transaction
+lists, it mines out of core: nothing is materialised, Job1 and every
+counting job stream the reader's chunks (``encode_block`` plus the engine's
+``count_block_async`` per chunk) and sum the per-chunk counts.  The Hadoop
+cost-model ``SimRunner``, the multi-device runner and fault injection are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ from repro_torch.core.runtime.cache import DATASET_CACHE, dataset_digest
 from repro_torch.core.runtime.device_loop import filter_candidates_device
 from repro_torch.core.runtime.engine import MapReduceEngine
 from repro_torch.core.runtime.job import CountJob, JobProfile
-from repro_torch.core.stores import encode_db_from_padded, padded_from_transactions
+from repro_torch.core.stores import (
+    EncodedDB, encode_db_from_padded, padded_from_transactions)
 from repro_torch.core.stores.base import dense_remap_padded
 
 
@@ -78,22 +83,41 @@ class BaseRunner:
         return filter_candidates_matrix(cand, level_mat)
 
 
-class _TorchPending:
-    """Job handle over the engine's ``PendingCounts``; adds the profile."""
+def _as_reader(transactions):
+    """The ingested object, as a ChunkedDatasetReader if it is one (lazy
+    import: core stays importable without the data package)."""
+    from repro_torch.data.chunked import ChunkedDatasetReader
 
-    def __init__(self, runner: "TorchRunner", job: CountJob, pending,
-                 encode_s: float) -> None:
+    if isinstance(transactions, ChunkedDatasetReader):
+        return transactions
+    return None
+
+
+class _TorchPending:
+    """Job handle over the engine's ``PendingCounts``; adds the profile.
+
+    A resident job has one engine handle; an out-of-core job has one per
+    streamed chunk (``chunks`` of them), and ``result()`` sums their count
+    vectors in int64: support counts are additive over disjoint transaction
+    blocks, so the total equals the count over the whole DB.
+    """
+
+    def __init__(self, runner: "TorchRunner", job: CountJob, parts,
+                 encode_s: float, chunks: int = 0) -> None:
         self._runner = runner
         self._job = job
-        self._pending = pending
+        self._parts = parts
         self._encode_s = encode_s
+        self._chunks = chunks
 
     def poll(self) -> bool:
-        return self._pending.poll()
+        return all(p.poll() for p in self._parts)
 
     def result(self) -> Tuple[np.ndarray, JobProfile]:
         t0 = time.perf_counter()
-        counts = self._pending.result()
+        counts = np.zeros((int(self._job.cand.shape[0]),), np.int64)
+        for p in self._parts:
+            counts += p.result()
         wait_s = time.perf_counter() - t0
         prof = JobProfile(
             k=self._job.k, n_candidates=self._job.n_candidates,
@@ -101,6 +125,7 @@ class _TorchPending:
             encode_seconds=self._encode_s, count_seconds=wait_s,
             inflight_depth=self._runner.engine.inflight,
             inflight_retunes=self._runner.engine.inflight_retunes,
+            chunks=self._chunks,
         )
         return counts, prof
 
@@ -126,6 +151,8 @@ class TorchRunner(BaseRunner):
         self._padded_raw: Optional[np.ndarray] = None
         self._n_raw = 0
         self._raw_digest: Optional[str] = None
+        self._reader = None  # a ChunkedDatasetReader when mining out of core
+        self._chunk_item_map: Optional[np.ndarray] = None
 
     def describe(self) -> str:
         return f"{self.kind}/{self.engine.store_name}"
@@ -135,13 +162,37 @@ class TorchRunner(BaseRunner):
         self.engine.abandon()
 
     def ingest(self, transactions: Sequence[Sequence[int]]) -> None:
+        reader = _as_reader(transactions)
+        if reader is not None:
+            # Out of core: nothing is materialised; every job streams the
+            # reader's chunks, so peak host memory stays about one chunk.
+            self._reader = reader
+            self._padded_raw = None
+            self._n_raw = reader.n_raw_items
+            self._raw_digest = None
+            self._chunk_item_map = None
+            return
         # The single host pass over the raw lists; everything downstream
         # (Job1, dense re-encode, counting) is vectorized or on the device.
+        self._reader = None
         self._padded_raw, self._n_raw = padded_from_transactions(transactions)
         self._raw_digest = None  # lazily computed on first place()
 
     def job1(self) -> Tuple[np.ndarray, JobProfile]:
         t0 = time.perf_counter()
+        if self._reader is not None:
+            # Per-chunk device histograms summed on the host: a bincount is
+            # additive over disjoint blocks, so this equals the whole-DB job.
+            hist = np.zeros((self._n_raw,), np.int64)
+            n_chunks = 0
+            for chunk in self._reader.chunks():
+                hist += self.engine.count_items_device(chunk, self._n_raw)
+                n_chunks += 1
+            wall = time.perf_counter() - t0
+            prof = JobProfile(k=1, n_candidates=int(np.count_nonzero(hist)),
+                              seconds=wall, count_seconds=wall,
+                              chunks=n_chunks)
+            return hist, prof
         hist = self.engine.count_items_device(self._padded_raw, self._n_raw)
         wall = time.perf_counter() - t0
         # n_candidates = distinct items actually observed.
@@ -152,7 +203,12 @@ class TorchRunner(BaseRunner):
     def place(self, item_map: np.ndarray) -> None:
         """Dense re-encode over the frequent items, served through the shared
         encoded-dataset cache (keyed by raw-DB digest, store, f_pad and
-        item-map digest), then copied to the device."""
+        item-map digest), then copied to the device.  Out of core only the
+        item map is kept (jobs encode each chunk with ``encode_block``) and
+        the cache is skipped: a cached EncodedDB is the whole DB."""
+        if self._reader is not None:
+            self._chunk_item_map = np.asarray(item_map, np.int64)
+            return
         if self._raw_digest is None:
             self._raw_digest = dataset_digest(self._padded_raw)
         item_arr = np.asarray(item_map, np.int64)
@@ -167,6 +223,19 @@ class TorchRunner(BaseRunner):
                                    n_raw=self._n_raw)
         return encode_db_from_padded(dense, n_items=len(item_map))
 
+    def encode_block(self, padded_raw: np.ndarray,
+                     item_map: np.ndarray) -> EncodedDB:
+        """Dense-encode an ad-hoc block of raw-id rows over a frequent-item
+        map: the same remap and F_pad as ``place()``, so the block's tensors
+        line up with the candidates' encoding."""
+        dense = dense_remap_padded(padded_raw, item_map)
+        return encode_db_from_padded(dense, n_items=len(item_map))
+
+    def count_block_async(self, enc_block: EncodedDB, cand: np.ndarray):
+        """Count a candidate matrix over an ad-hoc encoded block instead of
+        the placed DB, through the engine's shared FIFO."""
+        return self.engine.count_block_async(enc_block, cand)
+
     def filter_candidates(self, cand: np.ndarray,
                           level_mat: np.ndarray) -> np.ndarray:
         """SPC cut-back on the device (same rows, same order)."""
@@ -174,9 +243,27 @@ class TorchRunner(BaseRunner):
                                         device=self.engine.device)
 
     def count_async(self, job: CountJob):
+        if self._reader is not None:
+            return self._count_chunked_async(job)
         t0 = time.perf_counter()
         pending = self.engine.count_candidates_async(job.cand)
-        return _TorchPending(self, job, pending, time.perf_counter() - t0)
+        return _TorchPending(self, job, [pending], time.perf_counter() - t0)
+
+    def _count_chunked_async(self, job: CountJob) -> _TorchPending:
+        """Stream the reader through one counting job: per chunk,
+        ``encode_block`` and the engine's block count; the handle sums the
+        per-chunk vectors.  The engine forces the oldest result to the host
+        once ``inflight`` chunk counts are outstanding, so dispatch never
+        runs further ahead of the device than the queue."""
+        if self._chunk_item_map is None:
+            raise RuntimeError("call place(item_map) first")
+        t0 = time.perf_counter()
+        parts = []
+        for chunk in self._reader.chunks():
+            enc = self.encode_block(chunk, self._chunk_item_map)
+            parts.append(self.engine.count_block_async(enc, job.cand))
+        return _TorchPending(self, job, parts, time.perf_counter() - t0,
+                             chunks=len(parts))
 
 
 def make_runner(store: str = "perfect_hash", mesh=None,

@@ -13,7 +13,10 @@ the edges of its TMA/wgmma design (``WGMMA_EDGES``).  Small mines through
 each store on the card (host loop and level ladder) are held against
 brute-force counting, the trie and hash-tree stores against
 ``perfect_hash``, and a mine with the default kernel switch must move the
-kernel's launch counter.
+kernel's launch counter.  Out of core, a ``.dat`` mined through
+``ChunkedDatasetReader`` with the kernels on must equal the resident
+``perfect_hash`` mine, and the block count of a chunk shorter than
+``block_n`` and of a ragged final chunk must equal the plain path's.
 """
 
 import math
@@ -26,10 +29,12 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.itemsets import brute_force_frequent  # noqa: E402
 from repro_torch.core.itemsets import level_to_matrix  # noqa: E402
 from repro_torch.core.miner import FrequentItemsetMiner  # noqa: E402
+from repro_torch.core.runtime.engine import MapReduceEngine  # noqa: E402
 from repro_torch.core.runtime.runners import TorchRunner  # noqa: E402
-from repro_torch.core.stores import ARRAY_STORES, pack_bitmap  # noqa: E402
+from repro_torch.core.stores import (  # noqa: E402
+    ARRAY_STORES, ITEM_PAD, pack_bitmap, padded_from_transactions)
 from repro_torch.core.stores.packed_bitmap import pack_candidates_device  # noqa: E402
-from repro_torch.data import get_dataset  # noqa: E402
+from repro_torch.data import ChunkedDatasetReader, get_dataset, write_dat  # noqa: E402
 from repro_torch.kernels.support_count import (  # noqa: E402
     launches, packed_support_count, packed_support_count_ref, pad_copies,
     support_count, support_count_ref,
@@ -268,3 +273,73 @@ def test_trie_and_hash_tree_stores_match_perfect_hash(cuda, store):
         np.testing.assert_array_equal(got, ref, err_msg=f"{store} k={k}")
         assert ref.sum() > 0 or k == 4  # k <= 3 exercises matches
     assert FrequentItemsetMiner(min_support=0.02, store=store).mine(db).itemsets == want
+
+
+
+KERNEL_STORES = [("packed_bitmap", "packed_support_count"),
+                 ("bitmap", "support_count")]
+
+
+@pytest.mark.parametrize("store,kernel", KERNEL_STORES)
+@pytest.mark.parametrize("chunk", [100, 333, 5000])
+def test_out_of_core_mine_on_card_matches_resident(cuda, tmp_path, store,
+                                                   kernel, chunk,
+                                                   monkeypatch):
+    """A ``.dat`` mined out of core through a kernel store at its default
+    switch (chunks shorter than ``block_n``, a ragged last chunk, one chunk
+    of several row blocks) equals the resident ``perfect_hash`` mine; each
+    kernel launch is one row block of one chunk for one candidate chunk."""
+    assert ARRAY_STORES[store].use_kernel is None
+    db = get_dataset("BMS_WebView_2", scale=0.02, seed=1)  # 1,550 rows
+    path = str(tmp_path / "db.dat")
+    write_dat(path, db)
+    reader = ChunkedDatasetReader(path, chunk_transactions=chunk)
+    want = FrequentItemsetMiner(min_support=0.01).mine(db)
+    waves = []
+    orig = TorchRunner._count_chunked_async
+
+    def logged(self, job):
+        waves.append(len(job.cand))
+        return orig(self, job)
+
+    monkeypatch.setattr(TorchRunner, "_count_chunked_async", logged)
+    before, copies = launches[kernel], pad_copies["support_count"]
+    got = FrequentItemsetMiner(min_support=0.01, store=store, block_n=256,
+                               cand_block=512).mine(reader)
+    assert got.itemsets == want.itemsets and got.max_k >= 5
+    assert all(p.chunks == reader.n_chunks for p in got.levels)
+    rows = [min(chunk, len(db) - i) for i in range(0, len(db), chunk)]
+    expected = (sum(math.ceil(c / 512) for c in waves)
+                * sum(math.ceil(r / 256) for r in rows))
+    assert launches[kernel] - before == expected > 0
+    assert pad_copies["support_count"] == copies
+
+
+@pytest.mark.parametrize("store", ["packed_bitmap", "bitmap"])
+def test_count_block_short_and_ragged_chunks_match_plain(cuda, store,
+                                                         monkeypatch):
+    """``count_block`` through the kernel over a chunk shorter than
+    ``block_n`` and over a ragged final chunk equals the plain path's on
+    the card, and every FIFO entry it leaves carries a CUDA event (an entry
+    without one would make ``drain_ready`` block)."""
+    padded, _ = padded_from_transactions(
+        get_dataset("T10I4D100K", scale=0.01, seed=2))
+    item_map = np.nonzero(np.bincount(padded[padded < ITEM_PAD]) >= 20)[0]
+    engine = MapReduceEngine(store=store, block_n=512, cand_block=700,
+                             inflight=8)
+    runner = TorchRunner(store=store)
+    rng = np.random.default_rng(3)
+    cands = [np.unique(np.sort(np.stack(
+        [rng.choice(len(item_map), k, replace=False) for _ in range(2000)]),
+        axis=1), axis=0).astype(np.int32) for k in (1, 2, 3)]
+    for lo, hi in ((0, 300), (300, 1000)):  # 300 < block_n; 700 = 512 + 188
+        enc = runner.encode_block(padded[lo:hi], item_map)
+        for cand in cands:
+            monkeypatch.setattr(ARRAY_STORES[store], "use_kernel", None)
+            pending = engine.count_block_async(enc, cand)
+            assert engine._queue
+            assert all(entry[4] is not None for entry in engine._queue)
+            got = pending.result()
+            monkeypatch.setattr(ARRAY_STORES[store], "use_kernel", False)
+            np.testing.assert_array_equal(got, engine.count_block(enc, cand))
+            assert got.sum() > 0
