@@ -13,7 +13,10 @@ result line) when it fails:
    (counts are integers), at the shapes the main path gives it on
    T10I4D100K (the host loop's 32,768-candidate C2 chunk and the level
    ladder's whole 127,264-row C2; for the bitmap kernel also
-   BMS_WebView_2's C2: F_pad = 128) and at ragged shapes (C larger than a
+   BMS_WebView_2's C2: F_pad = 128; and phase 6's serving shapes: the
+   first and last 32,768-candidate chunks of the tracked C2 at F_pad 640
+   over a one-row delta block, a 1,077-row slot tail and a full row
+   block) and at ragged shapes (C larger than a
    tile, mixed k with pad rows, N split across blocks, a W >= 128
    vocabulary, F % 16 != 0); kernel, plain and library times beside the
    least time the card could take;
@@ -43,7 +46,25 @@ result line) when it fails:
    ``perfect_hash`` SPC mine's, every level row must have streamed every
    chunk, no bitmap count may take the pad copy, and each kernel's launches
    must equal (candidate chunks of every wave) x (row blocks of every
-   transaction chunk).
+   transaction chunk);
+6. serving: ``MiningService`` on the card over seeded ``basket_stream``
+   windows.  T10I4D100K (32 slots of 3,125, min_support 0.01, margin 0.8,
+   max_k 8): 32 warm-up batches and a cold query, then 16 measured batches
+   through ``perfect_hash``, ``packed_bitmap`` and ``bitmap`` with an exact
+   query after each; the same stream with ``query(staleness=0.5)`` and
+   ``refresh_async()`` between batches; and ``packed_bitmap`` and
+   ``bitmap`` with per-basket eviction and the trimmed-ladder refresh,
+   evicting 1, 7 and 3,124 baskets after each batch.  BMS_WebView_2 (32
+   slots of 2,422, 0.002, max_k 16): 8 measured batches through
+   ``perfect_hash`` and ``packed_bitmap``.  Every exact answer's itemsets
+   AND supports must equal a ``perfect_hash`` ladder recount of
+   ``svc.window()`` at that step (shared by every store whose window is the
+   same), every stale answer must be sound under its certificate, each
+   one-row eviction must launch the store's kernel once per candidate
+   chunk, and each kernel's launches must equal what the service
+   dispatched (``ServeLog``: candidate chunks x row blocks of every delta
+   job and refresh wave, row blocks of every ladder level).  Then the
+   launcher runs once with the README's arguments.
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -65,6 +86,7 @@ POPC_PER_CLK_PER_SM = 16     # 32-bit popcount issue rate, compute capability 9.
 # sheet's 1,979 TOP/s is 8,192 x 132 SMs x 1,830 MHz.
 INT8_OPS_PER_CLK_PER_SM = 8192
 BLOCK_N, CAND_BLOCK = 2048, 32_768  # the miner's default row block / chunk
+SLOT = 3125  # phase 6's T10I4D100K slot: 32 slots hold the 100,000 baskets
 CAND_UNIT = 8  # the level ladder's candidate pad quantum
 KERNEL_OF = {"packed_bitmap": "packed_support_count", "bitmap": "support_count"}
 STORES = ["packed_bitmap", "bitmap", "perfect_hash", "sorted_prefix",
@@ -238,7 +260,7 @@ def time_packed_shape(a, b, kv, sm_rate):
     return row
 
 
-def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
+def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
     """Every kernel vs its plain version on the card; returns JSON rows."""
     import numpy as np
     import torch
@@ -285,6 +307,22 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
     if "packed" not in pc or bc["khot"].dtype != torch.int8:
         raise AssertionError("default switch: CUDA tensors not encoded for "
                              "the kernels")
+    # The serving path's shapes (phase 6): the tracked C2 of T10I4D100K at
+    # the margin-lowered threshold (F_pad 640) in its first and last
+    # candidate chunks, over a one-row delta block (per-basket eviction),
+    # the ragged tail of a 3,125-row slot and a full row block.
+    c2s = c2_of(enc_serve)
+    fs = enc_serve.f_pad
+    chunks_s = [torch.from_numpy(pad_candidates(part, fs)).to(dev) for part in
+                (c2s[:CAND_BLOCK],
+                 c2s[(len(c2s) - 1) // CAND_BLOCK * CAND_BLOCK:])]
+    pcs = [PackedBitmapStore.encode_candidates(x, f_pad=fs) for x in chunks_s]
+    bcs = [BitmapMXUStore.encode_candidates(x, f_pad=fs) for x in chunks_s]
+    serve_rows = (1, SLOT - BLOCK_N, BLOCK_N)
+    packed_s = {n: torch.from_numpy(enc_serve.packed[:n]).to(dev)
+                for n in serve_rows}
+    bitmap_s = {n: torch.from_numpy(enc_serve.bitmap[:n]).to(dev)
+                for n in serve_rows}
 
     def packed_case(n, w, c, ks, pads):
         f = w * 32
@@ -318,6 +356,8 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
          "replaces": "src/repro/kernels/support_count/packed.py:65",
          "main": (packed, pc["packed"], pc["kvec"]),
          "ladder": (packed, pc_l["packed"], pc_l["kvec"]),
+         "serve": [(packed_s[n], p["packed"], p["kvec"])
+                   for n in serve_rows for p in pcs],
          "ragged": [packed_case(513, 9, 300, [5], 0),
                     packed_case(64, 16, 1024, [4], 0),
                     packed_case(100, 5, 70, [2, 3, 4], 7),
@@ -329,6 +369,8 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
          "main": (bitmap, bc["khot"], bc["kvec"]),
          "ladder": (bitmap, bc_l["khot"], bc_l["kvec"]),
          "more": [(bitmap_bms, bc_bms["khot"], bc_bms["kvec"])],
+         "serve": [(bitmap_s[n], b["khot"], b["kvec"])
+                   for n in serve_rows for b in bcs],
          "ragged": [bitmap_case(513, 257, 300, [5], 0),
                     bitmap_case(100, 130, 70, [2], 0),
                     bitmap_case(64, 512, 1024, [4], 0),
@@ -342,7 +384,7 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
     for spec in specs:
         err = 0
         for args in [spec["main"], spec["ladder"], *spec.get("more", []),
-                     *spec["ragged"]]:
+                     *spec["serve"], *spec["ragged"]]:
             got = spec["kernel"](*args)
             torch.cuda.synchronize()
             want = spec["plain"](*args)
@@ -370,6 +412,9 @@ def kernel_phase(enc, enc_bms, rng, sm_rate, int8_rate):
         row.update({k: shapes[0][k] for k in keys})
         row["shape"] = {k: shapes[0][k] for k in ("n", "c", "width")}
         row["ladder_shape"] = shapes[1]
+        # One-row delta and full row block against the first serving chunk.
+        row["serve_shapes"] = [timed(spec["serve"][0]),
+                               timed(spec["serve"][4])]
         if spec["name"] == "support_count":
             row["more_shapes"] = shapes[2:]
             row["sweep"] = bitmap_sweep(enc, spec["main"][1], spec["main"][2],
@@ -630,6 +675,352 @@ def out_of_core(workloads, bases):
     return mines, by_path, host
 
 
+class ServeLog:
+    """While active (and not ``paused``), logs every counting dispatch a
+    service makes, so its expected launches follow from what it dispatched:
+    each delta job (``TorchRunner.count_block_async``: block rows x
+    candidates), each host-loop wave over the placed window
+    (``MapReduceEngine.count_candidates_async``: placed rows x candidates)
+    and each ladder level (``LevelLadder.run``: the level's ``n_pad``).  It
+    also sums the host seconds of the serving layer's phases."""
+
+    TIMED = [("runner", "encode_block"), ("runner", "count_block_async"),
+             ("service", "_drain_deltas"), ("service", "_serve_from_tracked"),
+             ("service", "_serve_stale"), ("service", "_refresh_blocking"),
+             ("service", "_pump_refresh")]
+
+    def __enter__(self):
+        from repro_torch.core.runtime.device_loop import LevelLadder
+        from repro_torch.core.runtime.engine import MapReduceEngine
+        from repro_torch.core.runtime.runners import TorchRunner
+        from repro_torch.serve.engine import MiningService
+
+        self.deltas, self.waves, self.levels = [], [], []
+        self.host = {name: 0.0 for _, name in self.TIMED}
+        self.paused = False
+        self._saved = []
+        owners = {"runner": TorchRunner, "service": MiningService}
+        for owner, name in self.TIMED:
+            self._patch(owners[owner], name, self._timed(name))
+        self._patch(TorchRunner, "count_block_async", self._delta)
+        self._patch(MapReduceEngine, "count_candidates_async", self._wave)
+        self._patch(LevelLadder, "run", self._ladder)
+        return self
+
+    def _patch(self, cls, name, wrap):
+        orig = getattr(cls, name)
+        self._saved.append((cls, name, orig))
+        setattr(cls, name, wrap(orig))
+
+    def _timed(self, name):
+        def wrap(orig):
+            def timed(obj, *args, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return orig(obj, *args, **kw)
+                finally:
+                    if not self.paused:
+                        self.host[name] += time.perf_counter() - t0
+            return timed
+        return wrap
+
+    def _delta(self, orig):
+        def logged(runner, enc, cand):
+            if not self.paused:
+                self.deltas.append((enc.n_transactions, len(cand)))
+            return orig(runner, enc, cand)
+        return logged
+
+    def _wave(self, orig):
+        def logged(engine, cand):
+            if not self.paused:
+                self.waves.append((engine._enc.n_transactions, len(cand)))
+            return orig(engine, cand)
+        return logged
+
+    def _ladder(self, orig):
+        def logged(lad, *args):
+            for prof, freq in orig(lad, *args):
+                if not self.paused:
+                    self.levels.append(prof.n_pad)
+                yield prof, freq
+        return logged
+
+    def expected(self) -> int:
+        """Kernel launches of everything logged: candidate chunks x row
+        blocks of every delta job and wave (nothing for an empty side),
+        row blocks of every ladder level (one pass a level)."""
+        def job(n, c):
+            return math.ceil(c / CAND_BLOCK) * math.ceil(n / BLOCK_N)
+        return (sum(job(n, c) for n, c in self.deltas + self.waves)
+                + sum(math.ceil(n / BLOCK_N) for n in self.levels))
+
+    def __exit__(self, *exc):
+        for cls, name, orig in reversed(self._saved):
+            setattr(cls, name, orig)
+
+
+def window_digest(window):
+    return len(window), hash(tuple(map(tuple, window)))
+
+
+def exact_supports(window, itemsets):
+    """Exact support of each itemset over the window, by intersecting the
+    items' basket-index lists on the host."""
+    import numpy as np
+
+    if not itemsets:
+        return {}
+    rows = {}
+    for i, t in enumerate(window):
+        for x in t:
+            rows.setdefault(x, []).append(i)
+    out = {}
+    for s in itemsets:
+        hit = np.asarray(rows.get(s[0], []))
+        for x in s[1:]:
+            hit = np.intersect1d(hit, rows.get(x, []), assume_unique=True)
+        out[s] = int(len(hit))
+    return out
+
+
+def check_sound(window, res, recount):
+    """A stale answer against the exact recount of its window: supports
+    within ``max_drift``, misses below ``miss_bound``, L1 exact, and full
+    equality when the certificate claims exactness."""
+    cert = res.certificate
+    true = exact_supports(window, [s for s in res.itemsets
+                                   if s not in recount])
+    true.update({s: c for s, c in recount.items() if s in res.itemsets})
+    drift = max((abs(c - true[s]) for s, c in res.itemsets.items()),
+                default=0)
+    missed = max((c for s, c in recount.items() if s not in res.itemsets),
+                 default=-1)
+    l1 = {s: c for s, c in res.itemsets.items() if len(s) == 1}
+    if (drift > cert.max_drift or missed >= cert.miss_bound
+            or l1 != {s: c for s, c in recount.items() if len(s) == 1}
+            or (cert.is_exact(res.min_count) and res.itemsets != recount)):
+        raise AssertionError(f"stale answer unsound: drift {drift}, missed "
+                             f"support {missed}, certificate {cert}")
+    return drift
+
+
+def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
+    """One service through one program on the card: warm the window with
+    ``warm`` batches and a cold exact query, then one measured step per
+    remaining batch.  ``program`` is ``"exact"`` (ingest, query),
+    ``"stale"`` (ingest, ``query(staleness=0.5)``, ``refresh_async()``)
+    or ``"basket"`` (ingest, evict 1, 7 and slot_size - 1 baskets, query).
+    ``refs`` maps a step to ``(window digest, recount answer)``; a step
+    missing there is recounted by the ``perfect_hash`` ladder miner
+    (``device_loop=True``) over ``svc.window()``.  Every exact answer must
+    equal the recount, every stale one be sound under its certificate, and
+    the kernel's launches equal what the log saw dispatched."""
+    import numpy as np
+    from repro_torch.core.miner import FrequentItemsetMiner
+    from repro_torch.core.stores import ITEM_PAD
+    from repro_torch.kernels.support_count import (
+        launches, pad_copies, reset_launches)
+    from repro_torch.serve import MiningService
+
+    kernel = KERNEL_OF.get(store)
+    steps, recount_s, one_row = [], [], []
+    reset_launches()
+    with ServeLog() as log:
+        t0 = time.perf_counter()
+        svc = MiningService(store=store, device="cuda", **cfg)
+        for b in batches[:warm]:
+            svc.ingest(b)
+        cold = svc.query()
+        warm_s = time.perf_counter() - t0
+        host0 = dict(log.host)
+        launches0 = dict(launches)
+        jobs0 = svc.delta_jobs
+        for i, b in enumerate([None] + batches[warm:]):
+            st = {"step": i}
+            if i == 0:
+                res = cold
+            else:
+                rep = svc.ingest(b)
+                st["ingest_ms"] = rep.seconds * 1e3
+                st["delta_jobs"] = rep.delta_jobs
+                if program == "basket":
+                    st["evict_ms"] = 0.0
+                    for n in (1, 7, cfg["slot_size"] - 1):
+                        chunks = sum(math.ceil(len(tl.cand) / CAND_BLOCK)
+                                     for tl in svc._levels.values()
+                                     if tl.cand.size)
+                        real = bool((svc._slots[0].padded[:n]
+                                     < ITEM_PAD).any())
+                        before = dict(launches)
+                        st["evict_ms"] += svc.evict(n).seconds * 1e3
+                        if n == 1 and kernel and real:
+                            got = launches[kernel] - before[kernel]
+                            if got != chunks or not chunks:
+                                raise AssertionError(
+                                    f"one-row eviction launched {kernel} "
+                                    f"{got} times, expected {chunks}")
+                            one_row.append(got)
+                if program == "stale":
+                    res = svc.query(staleness=0.5)
+                else:
+                    res = svc.query()
+                st["query_ms"] = res.seconds * 1e3
+            window = svc.window()
+            digest = window_digest(window)
+            if i not in refs:
+                log.paused = True
+                t1 = time.perf_counter()
+                ref = FrequentItemsetMiner(
+                    min_support=cfg["min_support"], store="perfect_hash",
+                    device_loop=True, max_k=cfg["max_k"],
+                    device="cuda").mine(window).itemsets
+                recount_s.append(time.perf_counter() - t1)
+                log.paused = False
+                refs[i] = (digest, ref)
+            if refs[i][0] != digest:
+                raise AssertionError(f"{name} {store} step {i}: window differs "
+                                     "from the reference run's")
+            ref = refs[i][1]
+            if res.stale_reason == "stale" or not res.certificate.is_exact(
+                    res.min_count):
+                st["drift"] = check_sound(window, res, ref)
+            elif res.itemsets != ref:
+                raise AssertionError(f"{name} {store} step {i}: itemsets/"
+                                     "supports differ from the recount")
+            st.update(refreshed=res.refreshed, reason=res.stale_reason,
+                      window=len(window), n_itemsets=len(res.itemsets),
+                      exact=res.certificate.is_exact(res.min_count))
+            if program == "stale" and i:
+                svc.refresh_async()
+            st["launches"] = {k: launches[k] for k in launches}
+            steps.append(st)
+        stats = svc.stats()
+        f_pad = (len(svc._item_map) // 128 + 1) * 128
+        svc.close()
+    got = dict(launches)
+    expected = log.expected()
+    want = {k: (expected if k == kernel else 0) for k in got}
+    if got != want or len(log.deltas) != stats["delta_jobs"]:
+        raise AssertionError(f"{name} {store}: launches {got} != {want} or "
+                             f"{len(log.deltas)} logged delta jobs != "
+                             f"{stats['delta_jobs']}")
+    if pad_copies["support_count"]:
+        raise AssertionError(f"{name} {store}: {pad_copies} pad copies")
+    if kernel and not got[kernel]:
+        raise AssertionError(f"{kernel} never launched on {name}")
+    for k in got:
+        log_launches[k] += got[k]
+    measured = steps[1:]
+    ing = np.array([st["ingest_ms"] for st in measured])
+    qry = np.array([st["query_ms"] for st in measured])
+    per_batch = ((got[kernel] - launches0[kernel]) / len(measured)
+                 if kernel else 0.0)
+    host = {k: (log.host[k] - host0[k]) * 1e3 / len(measured)
+            for k in log.host}
+    rec = {"workload": name, "store": store, "program": program,
+           "window": steps[-1]["window"], "f_pad": f_pad, "warm_s": warm_s,
+           "ingest_ms_mean": float(ing.mean()),
+           "ingest_ms_p50": float(np.percentile(ing, 50)),
+           "evict_ms_mean": (float(np.mean([st["evict_ms"] for st in measured]))
+                             if program == "basket" else None),
+           "query_ms_p50": float(np.percentile(qry, 50)),
+           "query_ms_p95": float(np.percentile(qry, 95)),
+           "delta_served": int(sum(not st["refreshed"] for st in measured)),
+           "stale_served": stats["stale_served"],
+           "measured": len(measured), "refreshes": stats["refreshes"],
+           "delta_jobs": stats["delta_jobs"],
+           "delta_jobs_measured": stats["delta_jobs"] - jobs0,
+           "tracked_candidates": stats["tracked_candidates"],
+           "launches": got, "launches_per_batch": per_batch,
+           "host_ms_per_batch": host, "one_row_launches": one_row,
+           "recount_ms": (float(np.mean(recount_s)) * 1e3 if recount_s
+                          else None),
+           "steps": steps}
+    print(f"serve {name} {program} store={store}: window {rec['window']}, "
+          f"F_pad {f_pad}, tracked {rec['tracked_candidates']} candidates; "
+          f"per measured batch ingest mean {rec['ingest_ms_mean']:.2f} ms "
+          f"(p50 {rec['ingest_ms_p50']:.2f})"
+          + (f", evictions mean {rec['evict_ms_mean']:.2f} ms"
+             if program == "basket" else "")
+          + f", query p50 "
+          f"{rec['query_ms_p50']:.2f} ms p95 {rec['query_ms_p95']:.2f} ms; "
+          f"delta-served {rec['delta_served']}/{len(measured)} (stale "
+          f"{rec['stale_served']}); refreshes {rec['refreshes']}, delta jobs "
+          f"{rec['delta_jobs']} ({rec['delta_jobs_measured']} measured), "
+          f"launches {got} = expected, {per_batch:.1f} per batch"
+          + (f", one-row evictions {len(one_row)} x {one_row[0]} launches"
+             if one_row else "")
+          + (f"; recount {rec['recount_ms']:.1f} ms per query"
+             if recount_s else "")
+          + "; host ms per batch " + ", ".join(
+              f"{k} {v:.2f}" for k, v in host.items()))
+    return rec
+
+
+def serve_plans():
+    """Phase 6's workloads: (dataset, batch size, service config, measured
+    batches, [(path, program, extra config, stores)]).  T10I4D100K: 32
+    slots of 3,125 baskets hold the 100,000-basket window (``bench_serve.py``'s
+    slot formula at scale 1.0) at min_support 0.01, a tracked lattice of
+    F_pad 640; BMS_WebView_2: 32 slots of 2,422 (77,504 baskets), the deep
+    lattice, at 0.002."""
+    t10_cfg = dict(min_support=0.01, n_slots=32, slot_size=SLOT, margin=0.8,
+                   staleness=0.5, max_k=8)
+    bms_cfg = dict(min_support=0.002, n_slots=32, slot_size=2422, margin=0.8,
+                   staleness=0.5, max_k=16)
+    return [
+        ("T10I4D100K", SLOT, t10_cfg, 16, [
+            ("serve", "exact", {}, ["perfect_hash", "packed_bitmap", "bitmap"]),
+            ("serve_stale", "stale", {},
+             ["perfect_hash", "packed_bitmap", "bitmap"]),
+            ("serve_basket", "basket",
+             {"eviction": "basket", "device_loop": True, "trim": True},
+             ["packed_bitmap", "bitmap"])]),
+        ("BMS_WebView_2", 2422, bms_cfg, 8, [
+            ("serve", "exact", {}, ["perfect_hash", "packed_bitmap"])]),
+    ]
+
+
+def serve_phase(plans, scale=1.0):
+    """Phase 6: the streaming ``MiningService`` on the card, every delta and
+    refresh through the kernel stores, held to ``perfect_hash`` recounts;
+    then the launcher once with the README's arguments."""
+    from repro_torch.data import basket_stream
+    from repro_torch.kernels.support_count import launches
+    from repro_torch.launch import serve as serve_cli
+
+    by_path = {}
+    runs = []
+    for name, batch, cfg, measured, programs in plans:
+        t0 = time.perf_counter()
+        batches = [ab.transactions for ab in basket_stream(
+            name, batch_size=batch, scale=scale, seed=0, repeat=True,
+            max_batches=cfg["n_slots"] + measured)]
+        print(f"serve {name}: {len(batches)} arrival batches "
+              f"({sum(map(len, batches))} baskets) in "
+              f"{time.perf_counter() - t0:.2f} s")
+        refs_exact = {}
+        for path, program, extra, stores in programs:
+            counts = by_path.setdefault(path, {k: 0 for k in launches})
+            refs = refs_exact if program != "basket" else {}
+            for store in stores:
+                runs.append(serve_run(
+                    name, batches, cfg["n_slots"], dict(cfg, **extra), store,
+                    program, refs, counts))
+    for path, counts in by_path.items():
+        for k, n in counts.items():
+            if n <= 0:
+                raise AssertionError(f"{k} never launched on the {path} path")
+    t0 = time.perf_counter()
+    serve_cli.main(["--batches", "20", "--query-every", "4", "--eviction",
+                    "basket", "--query-staleness", "0.5", "--device", "cuda"])
+    cli_s = time.perf_counter() - t0
+    print(f"launcher: python -m repro_torch.launch.serve with the README's "
+          f"arguments in {cli_s:.2f} s")
+    return runs, by_path, cli_s
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -686,8 +1077,12 @@ def main() -> int:
     enc_bms = encode(bms[2], math.ceil(bms[1] * len(bms[2])))
     print(f"BMS_WebView_2 encode: N={enc_bms.n_transactions} "
           f"F={enc_bms.n_items} F_pad={enc_bms.f_pad}")
-    rows = kernel_phase(enc, enc_bms, np.random.default_rng(0), sm_rate,
-                        int8_rate)
+    # The serving lattice's width: items at the margin-lowered threshold.
+    enc_serve = encode(t10[2], math.ceil(0.8 * math.ceil(t10[1] * len(t10[2]))))
+    print(f"T10I4D100K serving encode: F={enc_serve.n_items} "
+          f"F_pad={enc_serve.f_pad}")
+    rows = kernel_phase(enc, enc_bms, enc_serve, np.random.default_rng(0),
+                        sm_rate, int8_rate)
 
     # Phase 3: small mines against brute force.
     small_check(get_dataset, brute_force_frequent)
@@ -698,6 +1093,9 @@ def main() -> int:
     # Phase 5: out of core, held to phase 4's resident answers.
     ooc_mines, by_path["spc_out_of_core"], ooc_host = out_of_core(workloads,
                                                                   bases)
+    # Phase 6: the streaming service, held to perfect_hash recounts.
+    serve_runs, serve_paths, cli_s = serve_phase(serve_plans())
+    by_path.update(serve_paths)
     # Host phases of the T10I4D100K mine that no JobProfile row holds: the
     # ingest pass and the speculative C3 generated while C2 counts.
     from repro_torch.core.itemsets import apriori_gen_matrix
@@ -725,6 +1123,7 @@ def main() -> int:
             json.dump({"card": card, "build_s": build_s, "kernels": rows,
                        "mines": mines, "host": host,
                        "out_of_core": {"mines": ooc_mines, "host": ooc_host},
+                       "serve": {"runs": serve_runs, "cli_s": cli_s},
                        "device": device,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": rows}))

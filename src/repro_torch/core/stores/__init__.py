@@ -21,7 +21,7 @@ transaction tensors on the device (the level ladder's trims).
 from repro_torch.core.stores.base import (
     DeltaCountMixin, EncodedDB, KernelSwitchMixin, dense_remap_padded, encode_db,
     encode_db_from_padded, encoded_db_from_numpy, pack_bitmap, pad_candidates,
-    padded_from_transactions, ITEM_PAD, WORD_BITS,
+    padded_from_transactions, tracked_keep_mask, ITEM_PAD, WORD_BITS,
 )
 from repro_torch.core.stores.perfect_hash import PerfectHashStore
 from repro_torch.core.stores.sorted_prefix import SortedPrefixStore
@@ -48,6 +48,7 @@ __all__ = [
     "padded_from_transactions",
     "pack_bitmap",
     "pad_candidates",
+    "tracked_keep_mask",
     "ITEM_PAD",
     "WORD_BITS",
     "PerfectHashStore",

@@ -204,6 +204,44 @@ class DeltaCountMixin:
         return counts + sign * cls.count_block(trans_block, cands).to(
             torch.int64)
 
+    @classmethod
+    def count_delta(cls, counts: torch.Tensor, trans_block: dict,
+                    cands: dict) -> torch.Tensor:
+        """counts + the block's contribution."""
+        return cls.apply_delta(counts, trans_block, cands, +1)
+
+    @classmethod
+    def uncount_delta(cls, counts: torch.Tensor, trans_block: dict,
+                      cands: dict) -> torch.Tensor:
+        """counts - the block's contribution (exact inverse of
+        ``count_delta``, down to a one-row block)."""
+        return cls.apply_delta(counts, trans_block, cands, -1)
+
+
+def tracked_keep_mask(cand: np.ndarray, prev_freq: np.ndarray) -> np.ndarray:
+    """bool[C]: which rows of a tracked (C, k) candidate level survive a
+    lattice compaction given the *currently* frequent rows of level k-1.
+
+    A row is kept exactly when the serving walk could still generate it:
+    every (k-1)-subset is a row of ``prev_freq`` (the level below, filtered
+    at the tracked threshold on current counts).  Currently frequent rows
+    always survive (their subsets are frequent by the Apriori property).
+    Both inputs are lexicographically sorted dense-id matrices, the tracked
+    lattice's layout.
+    """
+    from repro_torch.core.itemsets import _rows_member  # lazy: itemsets imports us
+
+    cand = np.asarray(cand)
+    if cand.size == 0:
+        return np.zeros((cand.shape[0] if cand.ndim == 2 else 0,), bool)
+    if prev_freq.size == 0:
+        return np.zeros((cand.shape[0],), bool)
+    keep = np.ones((cand.shape[0],), bool)
+    for drop in range(cand.shape[1]):
+        keep &= _rows_member(np.asarray(prev_freq, cand.dtype),
+                             np.delete(cand, drop, axis=1))
+    return keep
+
 
 def pad_candidates(cand: np.ndarray, f_pad: int, align: int = 128,
                    shards: int = 1) -> np.ndarray:

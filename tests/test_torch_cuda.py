@@ -343,3 +343,64 @@ def test_count_block_short_and_ragged_chunks_match_plain(cuda, store,
             monkeypatch.setattr(ARRAY_STORES[store], "use_kernel", False)
             np.testing.assert_array_equal(got, engine.count_block(enc, cand))
             assert got.sum() > 0
+
+
+@pytest.mark.parametrize("store,kernel", KERNEL_STORES)
+@pytest.mark.parametrize("device_loop", [False, True])
+def test_service_on_card_matches_cpu(cuda, store, kernel, device_loop):
+    """A small ``MiningService`` on the card through a kernel store (at its
+    default switch), with one-row evictions and host-wave or ladder
+    refreshes, equals the same program on the CPU plain path step by step;
+    every FIFO entry a delta leaves carries a CUDA event, and a one-row
+    eviction launches the kernel once per candidate chunk of every tracked
+    level."""
+    from repro_torch.serve import MiningService
+
+    kw = dict(min_support=0.04, store=store, n_slots=4, slot_size=250,
+              eviction="basket", staleness=0.5, max_k=6,
+              device_loop=device_loop, trim=True, compact_churn=0.0)
+    card, cpu = MiningService(**kw), MiningService(device="cpu", **kw)
+    assert card.runner.engine.device.type == "cuda"
+    copies = pad_copies["support_count"]
+    db = get_dataset("T10I4D100K", scale=0.02, seed=3)  # 2,000 baskets
+    refreshed = 0
+    for i in range(7):
+        batch = db[i * 250:(i + 1) * 250]
+        card.ingest(batch)
+        cpu.ingest(batch)
+        assert all(entry[4] is not None for entry in card.runner.engine._queue)
+        for n in (1, 1, 9):
+            chunks = sum(math.ceil(len(tl.cand) / card.runner.engine.cand_block)
+                         for tl in card._levels.values() if tl.cand.size)
+            real = bool((card._slots[0].padded[:n] < ITEM_PAD).any())
+            before = launches[kernel]
+            card.evict(n)
+            if n == 1 and real:
+                assert launches[kernel] - before == chunks
+            cpu.evict(n)
+        want, got = cpu.query(), card.query()
+        assert card.window() == cpu.window()
+        assert got.itemsets == want.itemsets
+        assert (got.refreshed, got.stale_reason) == (want.refreshed,
+                                                     want.stale_reason)
+        refreshed += got.refreshed
+        st_card, st_cpu = card.stats(), cpu.stats()
+        assert st_card == st_cpu
+    assert refreshed >= 2 and card.delta_jobs > 0
+    assert got.itemsets == brute_force_frequent(card.window(), got.min_count,
+                                                max_k=6)
+    # Stale serving and the background refresh, parked on CUDA events.
+    card.ingest(db[1750:2000])
+    res = card.query(staleness=4.0)
+    assert not res.refreshed
+    card.refresh_async()
+    for _ in range(200):
+        if not card.refresh_async():
+            break
+    assert not card.stats()["refresh_in_flight"]
+    res = card.query()
+    assert res.itemsets == brute_force_frequent(card.window(), res.min_count,
+                                                max_k=6)
+    assert pad_copies["support_count"] == copies
+    card.close()
+    cpu.close()

@@ -37,7 +37,7 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("|")
-    assert int(n_modules) >= 27  # every module: a dropped one shows
+    assert int(n_modules) >= 31  # every module: a dropped one shows
     assert bad == "", f"port pulled in: {bad}"
 
 
