@@ -16,7 +16,9 @@ result line) when it fails:
    BMS_WebView_2's C2: F_pad = 128; and phase 6's serving shapes: the
    first and last 32,768-candidate chunks of the tracked C2 at F_pad 640
    over a one-row delta block, a 1,077-row slot tail and a full row
-   block) and at ragged shapes (C larger than a
+   block, and for the packed kernel the whole tracked C2 as one chunk over
+   a full row block, as the drift program counts it) and at ragged shapes
+   (C larger than a
    tile, mixed k with pad rows, N split across blocks, a W >= 128
    vocabulary, F % 16 != 0); kernel, plain and library times beside the
    least time the card could take;
@@ -63,8 +65,28 @@ result line) when it fails:
    one-row eviction must launch the store's kernel once per candidate
    chunk, and each kernel's launches must equal what the service
    dispatched (``ServeLog``: candidate chunks x row blocks of every delta
-   job and refresh wave, row blocks of every ladder level).  Then the
-   launcher runs once with the README's arguments.
+   job and refresh wave, row blocks of every ladder level).  A last
+   T10I4D100K program (``packed_bitmap``, slots of 12,500 filling from 8
+   of 11) reads ``query(staleness=0.5)`` right after each ingest, while
+   that batch's delta job still runs: at least one answer must carry
+   ``max_drift > 0``, every one must be sound, and the exact query after
+   it equal the recount.  Then
+   the launcher runs once with the README's arguments;
+7. the paper's Hadoop model beside the card, faults and checkpoints:
+   ``run_parity_cell`` on T10I4D100K (1.0, 0.01) over
+   ``sim/hash_table_trie``, ``sim/trie`` and ``sim/hash_tree`` (4 mappers
+   on a process pool) and ``TorchRunner`` (``packed_bitmap``, ``bitmap``,
+   ``perfect_hash``) on the card; on BMS_WebView_2 (1.0, 0.002)
+   ``sim/hash_table_trie`` against
+   ``packed_bitmap``.  Every digest must equal phase 4's ``perfect_hash``
+   SPC mine's.  On BMS_WebView_2, ``device_loss`` at the k = 4 dispatch of
+   the host loop (``packed_bitmap``) and of the ladder (``bitmap``) must
+   raise, leave the snapshots of the completed levels, and a fault-free
+   runner on the same directory must resume without Job1, launching its
+   kernel exactly for the levels from k = 4 on, with phase 4's answer;
+   bit rot of the newest snapshot must fall back one level, and a torn
+   write must never commit.  ``FaultPlan.chaos`` on ``sim/trie``'s thread
+   pool over BMS_WebView_2 at scale 0.25 must equal a fault-free mine.
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -317,6 +339,9 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
                 (c2s[:CAND_BLOCK],
                  c2s[(len(c2s) - 1) // CAND_BLOCK * CAND_BLOCK:])]
     pcs = [PackedBitmapStore.encode_candidates(x, f_pad=fs) for x in chunks_s]
+    # Phase 6's drift program counts the whole tracked C2 as one chunk.
+    pc_whole = PackedBitmapStore.encode_candidates(
+        torch.from_numpy(pad_candidates(c2s, fs)).to(dev), f_pad=fs)
     bcs = [BitmapMXUStore.encode_candidates(x, f_pad=fs) for x in chunks_s]
     serve_rows = (1, SLOT - BLOCK_N, BLOCK_N)
     packed_s = {n: torch.from_numpy(enc_serve.packed[:n]).to(dev)
@@ -357,7 +382,8 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
          "main": (packed, pc["packed"], pc["kvec"]),
          "ladder": (packed, pc_l["packed"], pc_l["kvec"]),
          "serve": [(packed_s[n], p["packed"], p["kvec"])
-                   for n in serve_rows for p in pcs],
+                   for n in serve_rows for p in pcs]
+                  + [(packed_s[BLOCK_N], pc_whole["packed"], pc_whole["kvec"])],
          "ragged": [packed_case(513, 9, 300, [5], 0),
                     packed_case(64, 16, 1024, [4], 0),
                     packed_case(100, 5, 70, [2, 3, 4], 7),
@@ -425,17 +451,18 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
 
 class WaveLog:
     """Records the candidate count of every counting wave asked for while it
-    is active, so the expected launches of the host-loop paths follow from
-    the waves (SPC: one per level; FPC/DPC: several per job).  A resident
-    wave is one ``count_candidates_async`` call; an out-of-core wave is one
-    chunked job (``TorchRunner._count_chunked_async``), logged once however
-    many transaction chunks it streams."""
+    is active (and, in ``stores``, the store that counted it), so the
+    expected launches of the host-loop paths follow from the waves (SPC:
+    one per level; FPC/DPC: several per job).  A resident wave is one
+    ``count_candidates_async`` call; an out-of-core wave is one chunked job
+    (``TorchRunner._count_chunked_async``), logged once however many
+    transaction chunks it streams."""
 
     def __enter__(self):
         from repro_torch.core.runtime.engine import MapReduceEngine
         from repro_torch.core.runtime.runners import TorchRunner
 
-        self.sizes = []
+        self.sizes, self.stores = [], []
         self._saved = []
         for cls, attr, cand_of in (
                 (MapReduceEngine, "count_candidates_async", lambda a: a),
@@ -448,8 +475,15 @@ class WaveLog:
     def _logged(self, orig, cand_of):
         def logged(obj, arg):
             self.sizes.append(len(cand_of(arg)))
+            self.stores.append(getattr(obj, "engine", obj).store_name)
             return orig(obj, arg)
         return logged
+
+    def expected(self, store: str, n: int) -> int:
+        """Launches of ``store``'s waves over ``n`` resident rows."""
+        return math.ceil(n / BLOCK_N) * sum(
+            math.ceil(c / CAND_BLOCK)
+            for c, s in zip(self.sizes, self.stores) if s == store)
 
     def __exit__(self, *exc):
         for cls, attr, orig in self._saved:
@@ -727,14 +761,16 @@ class ServeLog:
     def _delta(self, orig):
         def logged(runner, enc, cand):
             if not self.paused:
-                self.deltas.append((enc.n_transactions, len(cand)))
+                self.deltas.append((enc.n_transactions, len(cand),
+                                    runner.engine.cand_block))
             return orig(runner, enc, cand)
         return logged
 
     def _wave(self, orig):
         def logged(engine, cand):
             if not self.paused:
-                self.waves.append((engine._enc.n_transactions, len(cand)))
+                self.waves.append((engine._enc.n_transactions, len(cand),
+                                   engine.cand_block))
             return orig(engine, cand)
         return logged
 
@@ -750,9 +786,9 @@ class ServeLog:
         """Kernel launches of everything logged: candidate chunks x row
         blocks of every delta job and wave (nothing for an empty side),
         row blocks of every ladder level (one pass a level)."""
-        def job(n, c):
-            return math.ceil(c / CAND_BLOCK) * math.ceil(n / BLOCK_N)
-        return (sum(job(n, c) for n, c in self.deltas + self.waves)
+        def job(n, c, chunk):
+            return math.ceil(c / chunk) * math.ceil(n / BLOCK_N)
+        return (sum(job(*d) for d in self.deltas + self.waves)
                 + sum(math.ceil(n / BLOCK_N) for n in self.levels))
 
     def __exit__(self, *exc):
@@ -809,8 +845,13 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
     """One service through one program on the card: warm the window with
     ``warm`` batches and a cold exact query, then one measured step per
     remaining batch.  ``program`` is ``"exact"`` (ingest, query),
-    ``"stale"`` (ingest, ``query(staleness=0.5)``, ``refresh_async()``)
-    or ``"basket"`` (ingest, evict 1, 7 and slot_size - 1 baskets, query).
+    ``"stale"`` (ingest, ``query(staleness=0.5)``, ``refresh_async()``),
+    ``"basket"`` (ingest, evict 1, 7 and slot_size - 1 baskets, query) or
+    ``"drift"`` (ingest, then at once ``query(staleness=0.5)``, read while
+    the last delta job's kernels still run, so its certificate must carry
+    ``max_drift > 0`` at least once; then an exact ``query()``).  A
+    ``cand_block`` key in ``cfg`` sets the runner's candidate chunk.  The
+    first ``warm`` batches fill the window.
     ``refs`` maps a step to ``(window digest, recount answer)``; a step
     missing there is recounted by the ``perfect_hash`` ladder miner
     (``device_loop=True``) over ``svc.window()``.  Every exact answer must
@@ -823,12 +864,16 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
         launches, pad_copies, reset_launches)
     from repro_torch.serve import MiningService
 
+    from repro_torch.core.runtime import TorchRunner
+
     kernel = KERNEL_OF.get(store)
     steps, recount_s, one_row = [], [], []
+    cand_block = cfg.pop("cand_block", CAND_BLOCK)
     reset_launches()
     with ServeLog() as log:
         t0 = time.perf_counter()
-        svc = MiningService(store=store, device="cuda", **cfg)
+        svc = MiningService(runner=TorchRunner(
+            store=store, cand_block=cand_block, device="cuda"), **cfg)
         for b in batches[:warm]:
             svc.ingest(b)
         cold = svc.query()
@@ -861,7 +906,7 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
                                     f"one-row eviction launched {kernel} "
                                     f"{got} times, expected {chunks}")
                             one_row.append(got)
-                if program == "stale":
+                if program in ("stale", "drift"):
                     res = svc.query(staleness=0.5)
                 else:
                     res = svc.query()
@@ -888,6 +933,13 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
             elif res.itemsets != ref:
                 raise AssertionError(f"{name} {store} step {i}: itemsets/"
                                      "supports differ from the recount")
+            if program == "drift" and i:
+                st["max_drift"] = res.certificate.max_drift
+                st["undrained"] = res.certificate.undrained
+                if svc.query().itemsets != ref:
+                    raise AssertionError(f"{name} {store} step {i}: exact "
+                                         "answer after a stale one differs "
+                                         "from the recount")
             st.update(refreshed=res.refreshed, reason=res.stale_reason,
                       window=len(window), n_itemsets=len(res.itemsets),
                       exact=res.certificate.is_exact(res.min_count))
@@ -898,6 +950,11 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
         stats = svc.stats()
         f_pad = (len(svc._item_map) // 128 + 1) * 128
         svc.close()
+    drifts = [st["max_drift"] for st in steps if "max_drift" in st]
+    if program == "drift" and not any(d > 0 for d in drifts):
+        raise AssertionError(f"{name} {store}: no stale answer carried drift "
+                             f"(max_drift {drifts}, reasons "
+                             f"{[st['reason'] for st in steps]})")
     got = dict(launches)
     expected = log.expected()
     want = {k: (expected if k == kernel else 0) for k in got}
@@ -951,6 +1008,10 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
           f"launches {got} = expected, {per_batch:.1f} per batch"
           + (f", one-row evictions {len(one_row)} x {one_row[0]} launches"
              if one_row else "")
+          + (f"; stale answers' max_drift {drifts} (undrained "
+             f"{[st['undrained'] for st in steps if 'undrained' in st]}, "
+             f"measured drift {[st.get('drift') for st in steps[1:]]}), "
+             "each sound against the recount" if drifts else "")
           + (f"; recount {rec['recount_ms']:.1f} ms per query"
              if recount_s else "")
           + "; host ms per batch " + ", ".join(
@@ -979,6 +1040,21 @@ def serve_plans():
              ["packed_bitmap", "bitmap"])]),
         ("BMS_WebView_2", 2422, bms_cfg, 8, [
             ("serve", "exact", {}, ["perfect_hash", "packed_bitmap"])]),
+        # Batches of 7,500-12,500 baskets, one 12,500-row slot each.  Every
+        # copy between host and card waits for the whole stream, so a delta
+        # job can still run when the query after its ingest reads the
+        # counts only if nothing is copied after it: the 8-batch warm-up
+        # leaves 3 of 11 slots free, so a measured batch evicts nothing
+        # (no older job for the FIFO to fetch behind it); max_k 2 leaves
+        # one tracked level, so one job a block (L2 is empty at 0.01, so
+        # the answers are the same); one candidate chunk for the whole
+        # tracked C2 keeps that job on the card for ~18 ms.  The service's
+        # own staleness of 0.1 makes each exact query refresh.
+        ("T10I4D100K", 10_000,
+         dict(t10_cfg, n_slots=11, slot_size=12_500, staleness=0.1,
+              max_k=2, warm=8), 3,
+         [("serve_drift", "drift", {"cand_block": 1 << 18},
+           ["packed_bitmap"])]),
     ]
 
 
@@ -990,27 +1066,31 @@ def serve_phase(plans, scale=1.0):
     from repro_torch.kernels.support_count import launches
     from repro_torch.launch import serve as serve_cli
 
-    by_path = {}
+    by_path, kernels = {}, {}
     runs = []
     for name, batch, cfg, measured, programs in plans:
+        cfg = dict(cfg)
+        warm = cfg.pop("warm", cfg["n_slots"])
         t0 = time.perf_counter()
         batches = [ab.transactions for ab in basket_stream(
             name, batch_size=batch, scale=scale, seed=0, repeat=True,
-            max_batches=cfg["n_slots"] + measured)]
+            max_batches=warm + measured)]
         print(f"serve {name}: {len(batches)} arrival batches "
               f"({sum(map(len, batches))} baskets) in "
               f"{time.perf_counter() - t0:.2f} s")
         refs_exact = {}
         for path, program, extra, stores in programs:
             counts = by_path.setdefault(path, {k: 0 for k in launches})
+            kernels.setdefault(path, set()).update(
+                KERNEL_OF[s] for s in stores if s in KERNEL_OF)
             refs = refs_exact if program != "basket" else {}
             for store in stores:
                 runs.append(serve_run(
-                    name, batches, cfg["n_slots"], dict(cfg, **extra), store,
+                    name, batches, warm, dict(cfg, **extra), store,
                     program, refs, counts))
     for path, counts in by_path.items():
-        for k, n in counts.items():
-            if n <= 0:
+        for k in kernels[path]:
+            if counts[k] <= 0:
                 raise AssertionError(f"{k} never launched on the {path} path")
     t0 = time.perf_counter()
     serve_cli.main(["--batches", "20", "--query-every", "4", "--eviction",
@@ -1019,6 +1099,339 @@ def serve_phase(plans, scale=1.0):
     print(f"launcher: python -m repro_torch.launch.serve with the README's "
           f"arguments in {cli_s:.2f} s")
     return runs, by_path, cli_s
+
+
+class CellLog:
+    """While active, keeps the ``JobProfile`` rows and the host wall clock
+    of every backend ``run_parity_cell`` mines, in factory order (the wall
+    runs from the previous backend's end: construction, the mine, and a
+    pool's shutdown)."""
+
+    def __enter__(self):
+        from repro_torch.core.runtime import sweep
+
+        self.levels, self.walls = [], []
+        self._sweep, self._orig = sweep, sweep.aggregate_profiles
+        self._t = time.perf_counter()
+
+        def logged(levels):
+            now = time.perf_counter()
+            self.walls.append(now - self._t)
+            self._t = now
+            self.levels.append(list(levels))
+            return self._orig(levels)
+        sweep.aggregate_profiles = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._sweep.aggregate_profiles = self._orig
+
+
+def parity_cell(name, db, support, factories, base, stores):
+    """One ``run_parity_cell`` on the card: its digest must equal the
+    phase-4 ``perfect_hash`` SPC mine's (``base``), and each kernel's
+    launches the row blocks x candidate chunks of its store's waves."""
+    from repro_torch.core.runtime import itemset_digest, run_parity_cell
+    from repro_torch.kernels.support_count import launches, reset_launches
+
+    with WaveLog() as waves, CellLog() as cell_log:
+        reset_launches()
+        t0 = time.perf_counter()
+        cell = run_parity_cell(db, support, factories)
+        wall = time.perf_counter() - t0
+        got = dict(launches)
+    want = {k: 0 for k in got}
+    for store in stores:
+        if store in KERNEL_OF:
+            want[KERNEL_OF[store]] = waves.expected(store, len(db))
+    if cell.digest != itemset_digest(base):
+        raise AssertionError(f"cell {name}: digest {cell.digest} != the "
+                             f"perfect_hash SPC mine's {itemset_digest(base)}")
+    if got != want or not all(want[KERNEL_OF[s]] for s in stores
+                              if s in KERNEL_OF):
+        raise AssertionError(f"cell {name}: launches {got} != {want}")
+    rows = {}
+    for (label, agg), levels, bwall in zip(cell.backends.items(),
+                                           cell_log.levels, cell_log.walls):
+        per_level = [{"k": p.k, "n_candidates": p.n_candidates,
+                      "n_frequent": p.n_frequent, "seconds": p.seconds,
+                      "gen": p.gen_seconds, "build": p.build_seconds,
+                      "encode": p.encode_seconds, "count": p.count_seconds,
+                      "reduce": p.reduce_seconds,
+                      "parallel": p.parallel_seconds,
+                      "mappers": len(p.mapper_seconds)} for p in levels]
+        rows[label] = {"wall_s": bwall, "aggregate": agg, "levels": per_level}
+        print(f"cell {name} min_support={support} {label}: host wall "
+              f"{bwall:.3f} s, jobs {agg['seconds']:.3f} s, parallel model "
+              f"{agg['parallel_seconds']:.3f} s, sequential "
+              f"{agg['sequential_seconds']:.3f} s; per level (max over "
+              "mappers) " + "; ".join(
+                  f"k={r['k']} gen {r['gen']:.3f} build {r['build']:.3f} "
+                  f"encode {r['encode']:.3f} count {r['count']:.3f} reduce "
+                  f"{r['reduce']:.3f}" for r in per_level))
+    print(f"cell {name}: {cell.n_itemsets} itemsets, digest {cell.digest} "
+          f"== phase 4's perfect_hash SPC mine across {len(factories)} "
+          f"backends in {wall:.1f} s, launches {got} (expected {want})")
+    return {"dataset": name, "min_support": support, "digest": cell.digest,
+            "n_itemsets": cell.n_itemsets, "wall_s": wall, "launches": got,
+            "backends": rows}
+
+
+def pool_startup_s() -> float:
+    """Host seconds to start a 4-worker process pool (forked from this
+    process, which holds a CUDA context) and run one empty Job1 wave."""
+    from repro_torch.core.runtime import SimRunner
+    from repro_torch.core.runtime.runners import _job1_mapper
+
+    runner = SimRunner(n_mappers=4, executor="process")
+    t0 = time.perf_counter()
+    runner._map(_job1_mapper, [([],)] * 4)
+    startup = time.perf_counter() - t0
+    runner.close()
+    return startup
+
+
+def resume_program(name, db, base, store, device_loop, k_loss):
+    """Device loss at the level-``k_loss`` dispatch, then a resume on a
+    fresh runner from the same checkpoint directory (a temporary one, never
+    inside the repository).  The faulted mine must raise with snapshots
+    keyed by the levels it completed, the resume must equal phase 4's
+    answer without running Job1, and its kernel must launch exactly for
+    the levels from ``k_loss`` on."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.miner import FrequentItemsetMiner
+    from repro_torch.core.runtime import DeviceLostError, FaultPlan, TorchRunner
+    from repro_torch.core.runtime import faults as F
+    from repro_torch.kernels.support_count import launches, reset_launches
+
+    kernel = KERNEL_OF[store]
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    saves = []  # host seconds of each level snapshot the resume writes
+    save = FrequentItemsetMiner._checkpoint
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        save(*args, **kwargs)
+        saves.append(time.perf_counter() - t0)
+    try:
+        plan = FaultPlan(F.device_loss(k=k_loss))
+        lost = TorchRunner(store=store, fault_plan=plan, device="cuda")
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            FrequentItemsetMiner(min_support=base["support"], runner=lost,
+                                 device_loop=device_loop,
+                                 checkpoint_dir=d).mine(db)
+            raise AssertionError(f"{name} {store}: device_loss(k={k_loss}) "
+                                 "never fired")
+        except DeviceLostError as err:
+            if err.k != k_loss or lost.engine._queue:
+                raise AssertionError(f"lost at k={err.k}, queue "
+                                     f"{len(lost.engine._queue)}") from err
+        lost_s = time.perf_counter() - t0
+        before = launches[kernel]
+        snaps = sorted(n for n in os.listdir(d) if n.startswith("step_"))
+        want_snaps = [f"step_{k:08d}" for k in range(3, k_loss + 1)]
+        if snaps != want_snaps:
+            raise AssertionError(f"snapshots {snaps} != {want_snaps}")
+        fresh = TorchRunner(store=store, device="cuda")
+        job1 = []
+        fresh.job1 = lambda orig=fresh.job1: job1.append(1) or orig()
+        with WaveLog() as waves:
+            reset_launches()
+            FrequentItemsetMiner._checkpoint = timed_save
+            t0 = time.perf_counter()
+            try:
+                res = FrequentItemsetMiner(
+                    min_support=base["support"], runner=fresh,
+                    device_loop=device_loop, checkpoint_dir=d).mine(db)
+            finally:
+                FrequentItemsetMiner._checkpoint = save
+            resume_s = time.perf_counter() - t0
+            got = dict(launches)
+        new = [p for p in res.levels if p.k >= k_loss]
+        if device_loop:
+            expected = sum(math.ceil(p.n_pad / BLOCK_N) for p in new)
+        else:
+            if waves.sizes != [p.n_candidates for p in new]:
+                raise AssertionError(f"resume waves {waves.sizes} != the "
+                                     "levels from the loss on")
+            expected = waves.expected(store, len(db))
+        want = {k: (expected if k == kernel else 0) for k in got}
+        if job1 or got != want or not expected or res.itemsets != base["itemsets"]:
+            raise AssertionError(f"{name} {store} resume: job1 ran {len(job1)}"
+                                 f" times, launches {got} != {want}, or the "
+                                 "answer differs from phase 4's")
+        print(f"fault {name} {'ladder' if device_loop else 'host loop'} "
+              f"store={store}: device_loss(k={k_loss}) raised after {lost_s:.3f}"
+              f" s ({before} launches), snapshots {snaps}; resume without "
+              f"Job1 in {resume_s:.3f} s ({len(saves)} level snapshots "
+              f"{sum(saves):.3f} s of it) over levels {[p.k for p in new]}, "
+              f"launches {got} (expected {want}), answer == phase 4")
+        return ({"dataset": name, "store": store, "device_loop": device_loop,
+                 "k_loss": k_loss, "lost_s": lost_s, "lost_launches": before,
+                 "snapshots": snaps, "resume_s": resume_s,
+                 "snapshot_s": saves, "launches": got,
+                 "levels": [p.k for p in new]},
+                dict(want, **{kernel: before + got[kernel]}), res)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def snapshot_faults(name, db, base, last_k):
+    """Bit rot in the newest level snapshot: restore quarantines it and
+    resumes from the one before, recounting only the last level.  A torn
+    write of a snapshot leaves its ``.tmp`` and never commits."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.miner import FrequentItemsetMiner
+    from repro_torch.core.runtime import FaultPlan, TorchRunner
+    from repro_torch.core.runtime import faults as F
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.kernels.support_count import launches, reset_launches
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {}
+    try:
+        newest = last_k + 1  # a snapshot is keyed by the next level
+        reset_launches()
+        runner = TorchRunner(store="packed_bitmap", device="cuda",
+                             fault_plan=FaultPlan(F.bitrot(step=newest)))
+        FrequentItemsetMiner(min_support=base["support"], runner=runner,
+                             checkpoint_dir=os.path.join(d, "rot")).mine(db)
+        valid = ckpt.latest_valid_step(os.path.join(d, "rot"))
+        quarantined = os.path.isdir(os.path.join(
+            d, "rot", f"step_{newest:08d}.corrupt"))
+        fresh = TorchRunner(store="packed_bitmap", device="cuda")
+        ks = []
+        fresh.count_async = (lambda job, orig=fresh.count_async:
+                             ks.append(job.k) or orig(job))
+        def no_job1():
+            raise AssertionError("Job1 ran on resume")
+
+        fresh.job1 = no_job1
+        res = FrequentItemsetMiner(min_support=base["support"], runner=fresh,
+                                   checkpoint_dir=os.path.join(d, "rot")
+                                   ).mine(db)
+        if (valid != newest - 1 or not quarantined or ks != [last_k]
+                or res.itemsets != base["itemsets"]):
+            raise AssertionError(f"bit rot: valid step {valid}, quarantined "
+                                 f"{quarantined}, recounted {ks}")
+        print(f"fault {name} bitrot(step={newest}): quarantined, restore "
+              f"fell back to step {valid}, recounted level(s) {ks}, answer "
+              "== phase 4")
+        out["bitrot"] = {"newest": newest, "restored": valid, "recounted": ks}
+        runner = TorchRunner(store="packed_bitmap", device="cuda",
+                             fault_plan=FaultPlan(F.torn_write(step=4)))
+        torn = os.path.join(d, "torn")
+        try:
+            FrequentItemsetMiner(min_support=base["support"], runner=runner,
+                                 checkpoint_dir=torn).mine(db)
+            raise AssertionError("torn_write never fired")
+        except ckpt.TornWriteError:
+            pass
+        used = dict(launches)
+        if not used["packed_support_count"] or used["support_count"]:
+            raise AssertionError(f"snapshot faults: launches {used}")
+        left = sorted(os.listdir(torn))
+        with open(os.path.join(torn, "LATEST")) as f:
+            pointed = f.read().strip()
+        if ("step_00000004.tmp" not in left or "step_00000004" in left
+                or pointed != "step_00000003"):
+            raise AssertionError(f"torn write left {left}, LATEST {pointed}")
+        print(f"fault {name} torn_write(step=4): left {left}, LATEST "
+              f"{pointed}: never committed")
+        out["torn_write"] = {"left": left, "latest": pointed}
+        return out, used
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def chaos_program(get_dataset):
+    """``FaultPlan.chaos`` on the sim's thread pool over BMS_WebView_2 at
+    scale 0.25 must equal a fault-free sim mine of the same data."""
+    from repro_torch.core.miner import FrequentItemsetMiner
+    from repro_torch.core.runtime import FaultPlan, RetryPolicy, SimRunner
+
+    db = get_dataset("BMS_WebView_2", 0.25, seed=0)
+    t0 = time.perf_counter()
+    with SimRunner(structure="trie", executor="process") as runner:
+        clean = FrequentItemsetMiner(min_support=0.002, runner=runner).mine(db)
+    clean_s = time.perf_counter() - t0
+    plan = FaultPlan.chaos(n_faults=3, seed=0)
+    t0 = time.perf_counter()
+    with SimRunner(structure="trie", executor="thread", fault_plan=plan,
+                   retry=RetryPolicy(backoff=0.001)) as runner:
+        res = FrequentItemsetMiner(min_support=0.002, runner=runner).mine(db)
+    chaos_s = time.perf_counter() - t0
+    tele = {f: sum(getattr(p, f) for p in res.levels)
+            for f in ("retries", "speculative_launches", "speculative_wins",
+                      "backoff_seconds")}
+    addresses = {(s.k, s.slot) for s in plan.specs}  # attempt 0 each
+    if res.itemsets != clean.itemsets or len(plan.injected) != len(addresses):
+        raise AssertionError(f"chaos: injected {plan.injected} of "
+                             f"{plan.specs}, answers equal: "
+                             f"{res.itemsets == clean.itemsets}")
+    print(f"chaos BMS_WebView_2 scale 0.25 ({len(db)} baskets): "
+          f"{[(s.kind, s.k, s.slot) for s in plan.specs]} fired "
+          f"{len(plan.injected)} times, "
+          f"telemetry {tele}; {len(res.itemsets)} itemsets == the fault-free "
+          f"sim/trie mine; thread pool {chaos_s:.2f} s, fault-free process "
+          f"pool {clean_s:.2f} s")
+    return {"specs": [(s.kind, s.k, s.slot) for s in plan.specs],
+            "telemetry": tele, "chaos_s": chaos_s, "clean_s": clean_s,
+            "n_itemsets": len(res.itemsets)}
+
+
+def hadoop_phase(workloads, bases, get_dataset):
+    """Phase 7: the paper's Hadoop model beside the card, fault injection
+    and level checkpoints.  Returns (record, launches by path)."""
+    from repro_torch.core.runtime import SimRunner, TorchRunner
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    rec = {"pool_startup_s": pool_startup_s()}
+    print(f"sim: a 4-worker process pool starts in "
+          f"{rec['pool_startup_s']:.3f} s (host)")
+
+    def sim(structure):
+        return lambda: SimRunner(structure=structure, n_mappers=4,
+                                 executor="process")
+
+    def card(store):
+        return lambda: TorchRunner(store=store, device="cuda")
+
+    data = {name: (support, db) for name, support, db in workloads}
+    support, t10 = data["T10I4D100K"]
+    stores = ["packed_bitmap", "bitmap", "perfect_hash"]
+    factories = {f"sim/{s}": sim(s)
+                 for s in ("hash_table_trie", "trie", "hash_tree")}
+    factories.update({f"torch/{s}": card(s) for s in stores})
+    rec["t10"] = parity_cell("T10I4D100K", t10, support, factories,
+                             bases["T10I4D100K"], stores)
+    by_path["cell_t10"] = rec["t10"]["launches"]
+    support, bms = data["BMS_WebView_2"]
+    rec["bms"] = parity_cell(
+        "BMS_WebView_2", bms, support,
+        {"sim/hash_table_trie": sim("hash_table_trie"),
+         "torch/packed_bitmap": card("packed_bitmap")},
+        bases["BMS_WebView_2"], ["packed_bitmap"])
+    by_path["cell_bms"] = rec["bms"]["launches"]
+    base = {"support": support, "itemsets": bases["BMS_WebView_2"]}
+    rec["device_loss_host"], by_path["device_loss_host"], res = resume_program(
+        "BMS_WebView_2", bms, base, "packed_bitmap", False, 4)
+    rec["device_loss_ladder"], by_path["device_loss_ladder"], _ = \
+        resume_program("BMS_WebView_2", bms, base, "bitmap", True, 4)
+    last_k = max(p.k for p in res.levels)
+    rec["snapshots"], by_path["snapshot_faults"] = snapshot_faults(
+        "BMS_WebView_2", bms, base, last_k)
+    rec["chaos"] = chaos_program(get_dataset)
+    rec["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 7: {rec['wall_s']:.1f} s")
+    return rec, by_path
 
 
 def main() -> int:
@@ -1096,6 +1509,9 @@ def main() -> int:
     # Phase 6: the streaming service, held to perfect_hash recounts.
     serve_runs, serve_paths, cli_s = serve_phase(serve_plans())
     by_path.update(serve_paths)
+    # Phase 7: the Hadoop model beside the card, faults and checkpoints.
+    hadoop, hadoop_paths = hadoop_phase(workloads, bases, get_dataset)
+    by_path.update(hadoop_paths)
     # Host phases of the T10I4D100K mine that no JobProfile row holds: the
     # ingest pass and the speculative C3 generated while C2 counts.
     from repro_torch.core.itemsets import apriori_gen_matrix
@@ -1124,6 +1540,7 @@ def main() -> int:
                        "mines": mines, "host": host,
                        "out_of_core": {"mines": ooc_mines, "host": ooc_host},
                        "serve": {"runs": serve_runs, "cli_s": cli_s},
+                       "hadoop": hadoop,
                        "device": device,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": rows}))

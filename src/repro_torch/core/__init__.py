@@ -1,4 +1,10 @@
-"""MapReduce Apriori with pluggable candidate stores, on PyTorch."""
+"""MapReduce Apriori with pluggable candidate stores, on PyTorch.
+
+Drivers (``FrequentItemsetMiner``, ``run_mapreduce_apriori``) submit jobs
+to runners: ``SimRunner`` (the paper's Hadoop cost model) or
+``TorchRunner`` (one device), which report through one ``JobProfile``
+schema.
+"""
 
 from repro_torch.core.itemsets import apriori_gen, brute_force_frequent
 from repro_torch.core.miner import FrequentItemsetMiner, MiningResult
@@ -6,8 +12,10 @@ from repro_torch.core.runtime import (
     CountJob,
     JobProfile,
     MapReduceEngine,
+    SimRunner,
     TorchRunner,
 )
+from repro_torch.core.hadoop_sim import HadoopSimResult, run_mapreduce_apriori
 
 __all__ = [
     "FrequentItemsetMiner",
@@ -15,7 +23,10 @@ __all__ = [
     "MapReduceEngine",
     "CountJob",
     "JobProfile",
+    "SimRunner",
     "TorchRunner",
+    "HadoopSimResult",
     "apriori_gen",
     "brute_force_frequent",
+    "run_mapreduce_apriori",
 ]

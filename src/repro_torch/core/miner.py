@@ -4,14 +4,29 @@ The PyTorch counterpart of the JAX package's ``core/miner.py``.
 ``FrequentItemsetMiner`` is a thin driver over the job runtime: it ingests
 the database into a runner, submits Job1 (the 1-itemset histogram),
 dense-remaps over the frequent items, and iterates a strategy, which owns
-the per-level counting jobs.  It takes the JAX miner's arguments plus
-``device`` (default ``"cuda"``; a CUDA-less machine raises unless the caller
-asks for ``"cpu"``).  ``mine`` also takes a ``ChunkedDatasetReader``, which
-streams every job through fixed-size transaction chunks (``device_loop``
-must then stay False).  ``device_loop=True`` runs the SPC levels as the
-device-resident ladder (``runtime/device_loop.py``), trimming the DB per
-level when ``trim``.  The mesh, candidate sharding, per-level checkpoints
-and caller-supplied runners are not ported yet and raise
+the per-level counting jobs — checkpointing after every counting job when
+``checkpoint_dir`` is set, so a preempted mine resumes at the last
+completed level (the Hadoop analogue: completed jobs are never re-run).
+
+Per-level checkpoints ride the snapshot store (``distributed.checkpoint``):
+one atomic, digest-stamped snapshot per completed level, so torn writes are
+ignored, bit rot is detected and quarantined, and a corrupt newest level
+falls back to the previous one.  On ``DeviceLostError`` (a ``device_loss``
+fault of the runner's ``FaultPlan``) one card has no smaller mesh to
+rebuild onto, so the error propagates after the runner's outstanding work
+is abandoned; a new miner with the same ``checkpoint_dir`` on a fresh
+runner resumes, and its itemsets AND supports equal a fault-free run's.
+
+Any runner works (``runner=``): ``TorchRunner`` (array-layout stores on the
+card) or ``SimRunner`` (the paper's Hadoop cost model over the
+Java-equivalent structures); all report the same ``JobProfile`` rows.  It
+takes the JAX miner's arguments plus ``device`` (default ``"cuda"``; a
+CUDA-less machine raises unless the caller asks for ``"cpu"``).  ``mine``
+also takes a ``ChunkedDatasetReader``, which streams every job through
+fixed-size transaction chunks (``device_loop`` must then stay False).
+``device_loop=True`` runs the SPC levels as the device-resident ladder
+(``runtime/device_loop.py``), trimming the DB per level when ``trim``.  The
+mesh and candidate sharding are not ported yet and raise
 ``NotImplementedError``.
 """
 
@@ -19,16 +34,22 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import json
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.itemsets import Itemset
+from repro_torch.core.itemsets import Itemset, level_to_matrix, sort_level
 from repro_torch.core.runtime import device_loop as _dl
 from repro_torch.core.runtime import strategies
 from repro_torch.core.runtime.engine import resolve_device
+from repro_torch.core.runtime.faults import DeviceLostError
 from repro_torch.core.runtime.job import JobProfile
 from repro_torch.core.runtime.runners import BaseRunner, make_runner
+
+# Back-compat alias: the old per-level stats type is the unified JobProfile.
+LevelStats = JobProfile
 
 # Distinguishes "inflight not configured" (default depth 1) from an explicit
 # inflight=None, which means auto-size the queue depth (engine semantics).
@@ -74,11 +95,20 @@ class FrequentItemsetMiner:
     ) -> None:
         for given, what in ((mesh is not None, "mesh"),
                             (bool(cand_axes), "cand_axes"),
-                            (data_axes not in (None, ("data",)), "data_axes"),
-                            (checkpoint_dir is not None, "checkpoint_dir"),
-                            (runner is not None, "runner=")):
+                            (data_axes not in (None, ("data",)), "data_axes")):
             if given:
                 raise NotImplementedError(f"{what} is not yet ported")
+        if runner is not None and (
+            any(v is not None
+                for v in (store, block_n, cand_block, encode_ahead))
+            or inflight is not _UNSET
+        ):
+            # An explicit runner owns its backend config; silently ignoring
+            # these would mine with a different setup than requested.
+            raise ValueError(
+                "pass backend config either through runner= or through "
+                "store/mesh/data_axes/cand_axes/block_n/cand_block/"
+                "inflight/encode_ahead — not both")
         self.min_support = min_support
         self.store = store if store is not None else "perfect_hash"
         self.strategy = strategy
@@ -97,40 +127,93 @@ class FrequentItemsetMiner:
                 f"it cannot run the {strategy!r} strategy")
         self.device_loop = device_loop
         self.trim = trim
-        # elastic_restarts acts only with a mesh, refused above; it is
-        # accepted for the same signature.
-        self.device = resolve_device(device)
+        self.checkpoint_dir = checkpoint_dir
+        self.runner = runner
+        # How many device losses a single mine() survives.  One card has no
+        # smaller mesh to rebuild onto, so every loss propagates; the knob
+        # is kept for the JAX miner's signature.
+        self.elastic_restarts = elastic_restarts
+        # A caller-supplied runner carries its own device (a SimRunner has
+        # none), so only a runner built here needs a usable one.
+        self.device = resolve_device(device) if runner is None else None
 
     def _make_runner(self) -> BaseRunner:
+        if self.runner is not None:
+            return self.runner
         return make_runner(store=self.store, block_n=self.block_n,
                            cand_block=self.cand_block, inflight=self.inflight,
                            encode_ahead=self.encode_ahead, device=self.device)
+
+    def _config(self, runner: BaseRunner) -> dict:
+        """The run configuration stamped into checkpoints; a checkpoint from
+        a different config must never silently resume this run.  The stamp
+        uses ``config_signature()`` (not ``describe()``), so a resume with
+        other mapper slots or block sizes still matches."""
+        return {"runner": runner.config_signature(),
+                "strategy": self.strategy, "max_k": self.max_k,
+                "device_loop": bool(self.device_loop),
+                "trim": bool(self.device_loop and self.trim)}
 
     def mine(self, transactions: Sequence[Sequence[int]]) -> MiningResult:
         """Mine the frequent itemsets of ``transactions`` (lists of item
         ids, or a ``ChunkedDatasetReader`` to mine a ``.dat`` out of core)
         at ``min_support``: itemsets in original ids with their supports,
-        and one ``JobProfile`` per counting job."""
+        and one ``JobProfile`` per counting job.
+
+        On ``DeviceLostError`` the runner is closed (its outstanding work
+        abandoned) and the error propagates: see ``_elastic_rebuild``.  A
+        runner this miner built is closed when the mine ends; a
+        caller-supplied one stays open for its caller.
+        """
         n = len(transactions)
         min_count = max(1, int(np.ceil(self.min_support * n)))
-        with self._make_runner() as runner:
-            self.active_runner = runner  # introspection: tests/benchmarks
-            return self._mine_once(runner, transactions, n, min_count)
+        runner = self._make_runner()
+        restarts = 0
+        try:
+            while True:
+                self.active_runner = runner  # introspection: tests
+                try:
+                    return self._mine_once(runner, transactions, n, min_count)
+                except DeviceLostError as err:
+                    restarts += 1
+                    runner.close(wait=False)
+                    if restarts > self.elastic_restarts:
+                        raise
+                    runner = self._elastic_rebuild(runner, err)
+        finally:
+            if self.runner is None:
+                runner.close()
+
+    def _elastic_rebuild(self, runner: BaseRunner,
+                         err: DeviceLostError) -> BaseRunner:
+        """A replacement runner on the devices that survive.  The port runs
+        on one card, so nothing survives a loss: re-raise, as the JAX miner
+        does for a single device."""
+        raise err
 
     def _mine_once(self, runner: BaseRunner, transactions, n: int,
                    min_count: int) -> MiningResult:
+        # Ingest before the restore: a resumed runner still needs the DB to
+        # place() it.
         runner.ingest(transactions)
-        # Job1: frequent 1-itemsets over the raw item universe.
-        hist, prof1 = runner.job1()
-        frequent_items = np.nonzero(hist >= min_count)[0]
-        item_map = frequent_items.astype(np.int64)  # dense id -> original id
-        itemsets: Dict[Itemset, int] = {
-            (int(it),): int(hist[it]) for it in frequent_items
-        }
-        prof1.n_frequent = len(frequent_items)
-        levels = [prof1]
-        # L1 in dense ids is simply 0..F-1, one item per row.
-        level_mat = np.arange(len(item_map), dtype=np.int32).reshape(-1, 1)
+
+        state = self._try_restore(n, min_count, self._config(runner))
+        if state is None:
+            # Job1: frequent 1-itemsets over the raw item universe.
+            hist, prof1 = runner.job1()
+            frequent_items = np.nonzero(hist >= min_count)[0]
+            item_map = frequent_items.astype(np.int64)  # dense id -> original
+            itemsets: Dict[Itemset, int] = {
+                (int(it),): int(hist[it]) for it in frequent_items
+            }
+            prof1.n_frequent = len(frequent_items)
+            levels = [prof1]
+            # L1 in dense ids is simply 0..F-1, one item per row.
+            level_mat = np.arange(len(item_map), dtype=np.int32).reshape(-1, 1)
+            k = 2
+        else:
+            itemsets, levels, level, k, item_map = state
+            level_mat = level_to_matrix(level)
 
         # Dense re-encode over frequent items only (Apriori property: no
         # candidate may contain an infrequent item) and make the DB resident.
@@ -140,13 +223,76 @@ class FrequentItemsetMiner:
         else:
             combiner = strategies.get(self.strategy)
         for stats, freq_dense in combiner(
-            runner, level_mat, min_count, start_k=2, max_k=self.max_k
+            runner, level_mat, min_count, start_k=k, max_k=self.max_k
         ):
             levels.append(stats)
             for s, c in freq_dense.items():
                 itemsets[tuple(int(item_map[i]) for i in s)] = int(c)
+            # A combined (FPC/DPC) wave yields mixed itemset sizes; the next
+            # level the strategy continues from — and the only thing a
+            # restore may rebuild into a (C, k) matrix — is the top-k slice.
+            top_k = max((len(s) for s in freq_dense), default=0)
+            level = sort_level(s for s in freq_dense if len(s) == top_k)
+            self._checkpoint(itemsets, levels, level, stats.k + 1, item_map,
+                             n, min_count, self._config(runner),
+                             fault_plan=getattr(runner, "fault_plan", None))
 
         return MiningResult(
             itemsets=itemsets, min_count=min_count, n_transactions=n,
             levels=levels, item_map=item_map,
         )
+
+    # -- fault tolerance ------------------------------------------------
+    # Per-level state rides the snapshot store (``distributed.checkpoint``):
+    # one digest-stamped snapshot per completed level keyed by
+    # ``step=next_k``, the item_map as the tensor tree and everything else
+    # JSON-packed in the manifest's ``extra``, in the JAX miner's format.
+
+    def _checkpoint(self, itemsets, levels, level, next_k, item_map, n,
+                    min_count, config, fault_plan=None):
+        if self.checkpoint_dir is None:
+            return
+        from repro_torch.distributed import checkpoint as ckpt
+
+        # ``level`` arrives in dense ids; persist original ids so a restart
+        # (which recomputes the dense remap) stays consistent.
+        orig_level = [[int(item_map[i]) for i in s] for s in level]
+        extra = {
+            "itemsets": [[list(s), c] for s, c in itemsets.items()],
+            "levels": [dataclasses.asdict(s) for s in levels],
+            "level": orig_level,
+            "next_k": next_k,
+            "n": n,
+            "min_count": min_count,
+            "config": json.dumps(config, sort_keys=True),
+        }
+        ckpt.save(self.checkpoint_dir, step=next_k,
+                  tree={"item_map": np.asarray(item_map)}, extra=extra,
+                  fault_plan=fault_plan)
+
+    def _try_restore(self, n: int, min_count: int, config: dict):
+        if self.checkpoint_dir is None or \
+                not os.path.isdir(self.checkpoint_dir):
+            return None
+        from repro_torch.distributed import checkpoint as ckpt
+
+        out = ckpt.load(self.checkpoint_dir)
+        if out is None:
+            return None
+        arrays, _step, extra = out
+        if int(extra.get("n", -1)) != n or \
+                int(extra.get("min_count", -1)) != min_count:
+            return None  # stale checkpoint from a different run
+        if extra.get("config") != json.dumps(config, sort_keys=True):
+            # Written under a different runner/store/strategy/max_k:
+            # resuming would silently mix configs.
+            return None
+        itemsets = {tuple(s): int(c) for s, c in extra["itemsets"]}
+        levels = [JobProfile(**d) for d in extra["levels"]]
+        level = [tuple(s) for s in extra["level"]]
+        next_k = int(extra["next_k"])
+        item_map = np.asarray(arrays["item_map"])
+        # Stored levels are in original ids; the loop needs dense ids.
+        remap = {int(orig): dense for dense, orig in enumerate(item_map)}
+        dense_level = [tuple(remap[i] for i in s) for s in level]
+        return itemsets, levels, dense_level, next_k, item_map

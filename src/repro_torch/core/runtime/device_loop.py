@@ -30,6 +30,11 @@ shrink as k grows.  Item ids are re-ranked densely after each trim;
 ``_cur_ids`` maps ladder ids back to the miner's dense ids (the map is
 monotone, so lexicographic row order is preserved end to end).
 
+**Faults**: with a ``FaultPlan``, a ``device_loss`` addressed to level k
+fires at that level's dispatch (``_check_fault``): the engine abandons its
+outstanding work and ``DeviceLostError`` propagates, so the miner's level
+checkpoint is the resume point, exactly as on the host loop.
+
 One device: the engine's ``n_data_shards`` and ``n_cand_shards`` are 1 and
 PyTorch runs eagerly, so there is no sharding and no compiled-step cache.
 """
@@ -37,11 +42,12 @@ PyTorch runs eagerly, so there is no sharding and no compiled-step cache.
 from __future__ import annotations
 
 import time
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.runtime.faults import DeviceLostError, FaultPlan
 from repro_torch.core.runtime.job import JobProfile
 from repro_torch.core.stores.base import ITEM_PAD
 
@@ -192,10 +198,12 @@ class LevelLadder:
     chunks otherwise, since the plain paths hold an (Nb, chunk) intermediate.
     """
 
-    def __init__(self, engine, min_count: int, trim: bool = True) -> None:
+    def __init__(self, engine, min_count: int, trim: bool = True,
+                 fault_plan: Optional[FaultPlan] = None) -> None:
         self.engine = engine
         self.min_count = int(min_count)
         self.trim = bool(trim)
+        self.fault_plan = fault_plan
 
     # -- state ----------------------------------------------------------------
     def _init_state(self, level_mat: np.ndarray) -> None:
@@ -326,6 +334,16 @@ class LevelLadder:
         self._n_pad, self._f_pad, self._width = new_n_pad, new_f_pad, new_width
         self._trans = self._make_inputs()
 
+    def _check_fault(self, k1: int) -> None:
+        if self.fault_plan is None:
+            return
+        spec = self.fault_plan.device_loss(k=k1)
+        if spec is not None:
+            # Simulated device loss at level dispatch: outstanding state is
+            # abandoned and the caller resumes from the level checkpoint.
+            self.engine.abandon()
+            raise DeviceLostError(lost=spec.lost, k=k1)
+
     # -- the generator ----------------------------------------------------------
     def run(self, level_mat: np.ndarray, start_k: int,
             max_k: int) -> Iterator[Tuple[JobProfile, dict]]:
@@ -347,6 +365,7 @@ class LevelLadder:
             n_pairs = join_pair_count(self._lvl_host)
             if n_pairs == 0:
                 return
+            self._check_fault(k1)
             t0 = time.perf_counter()
             trim_s = 0.0
             if self.trim:
@@ -395,5 +414,6 @@ def ladder(runner, level, min_count: int, start_k: int, max_k: int,
             "device_loop=True needs the DB resident on the device; "
             "out-of-core chunked ingestion streams it instead: mine "
             "with device_loop=False (the host SPC loop)")
-    lad = LevelLadder(engine, min_count, trim=trim)
+    lad = engine.level_ladder(min_count, trim=trim,
+                              fault_plan=getattr(runner, "fault_plan", None))
     yield from lad.run(np.asarray(level, dtype=np.int32), start_k, max_k)

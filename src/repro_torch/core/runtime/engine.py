@@ -323,6 +323,15 @@ class MapReduceEngine:
         """Blocking wrapper around :meth:`count_block_async`."""
         return self.count_block_async(enc_block, cand).result()
 
+    # -- the device-resident level ladder ------------------------------------
+    def level_ladder(self, min_count: int, trim: bool = True,
+                     fault_plan=None):
+        """The fused gen -> encode -> count -> prune loop over the placed DB
+        (``runtime/device_loop.py``), with optional on-device trimming."""
+        from repro_torch.core.runtime.device_loop import LevelLadder
+
+        return LevelLadder(self, min_count, trim=trim, fault_plan=fault_plan)
+
     # -- L1 (Job1: OneItemsetMapper + reducer) -------------------------------
     def count_items_device(self, padded: np.ndarray, n_items: int) -> np.ndarray:
         """Device-side Job1: histogram of the (N, L) padded id matrix.  Rows

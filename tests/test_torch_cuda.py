@@ -16,7 +16,10 @@ brute-force counting, the trie and hash-tree stores against
 kernel's launch counter.  Out of core, a ``.dat`` mined through
 ``ChunkedDatasetReader`` with the kernels on must equal the resident
 ``perfect_hash`` mine, and the block count of a chunk shorter than
-``block_n`` and of a ragged final chunk must equal the plain path's.
+``block_n`` and of a ragged final chunk must equal the plain path's.  A
+device loss on the card at k = 3 abandons the engine's queue, and a fresh
+runner resumes from the level checkpoint with the clean answer; a parity
+cell holds the Hadoop model (``sim/trie``) to ``packed_bitmap`` on the card.
 """
 
 import math
@@ -404,3 +407,60 @@ def test_service_on_card_matches_cpu(cuda, store, kernel, device_loop):
     assert pad_copies["support_count"] == copies
     card.close()
     cpu.close()
+
+
+def test_device_loss_on_card_then_resume(cuda, tmp_path):
+    """``device_loss`` at the k = 3 dispatch of a ``packed_bitmap`` mine on
+    the card raises after abandoning the engine's FIFO; a miner on a fresh
+    runner and the same checkpoint directory resumes at k = 3 without Job1,
+    its FIFO holds no entry of the abandoned runner, and the answer equals
+    a clean mine."""
+    from repro_torch.core.runtime import DeviceLostError, FaultPlan
+    from repro_torch.core.runtime import faults as F
+
+    db = get_dataset("BMS_WebView_2", scale=0.05, seed=0)  # ten levels
+    clean = FrequentItemsetMiner(min_support=0.003,
+                                 store="packed_bitmap").mine(db)
+    assert clean.max_k >= 4
+    lost = TorchRunner(store="packed_bitmap",
+                       fault_plan=FaultPlan(F.device_loss(k=3)))
+    abandoned = []
+    abandon = lost.engine.abandon
+    lost.engine.abandon = lambda: (abandoned.extend(
+        entry[0] for entry in lost.engine._queue), abandon())
+    with pytest.raises(DeviceLostError):
+        FrequentItemsetMiner(min_support=0.003, runner=lost,
+                             checkpoint_dir=str(tmp_path)).mine(db)
+    assert not lost.engine._queue
+    assert all(handle._cancelled for handle in abandoned)
+    fresh = TorchRunner(store="packed_bitmap")
+    ks = []
+
+    def count_async(job, orig=fresh.count_async):
+        ks.append(job.k)
+        queued = {id(entry[0]) for entry in fresh.engine._queue}
+        assert not queued & {id(h) for h in abandoned}
+        return orig(job)
+
+    fresh.job1 = lambda: pytest.fail("Job1 ran on resume")
+    fresh.count_async = count_async
+    before = launches["packed_support_count"]
+    res = FrequentItemsetMiner(min_support=0.003, runner=fresh,
+                               checkpoint_dir=str(tmp_path)).mine(db)
+    assert res.itemsets == clean.itemsets
+    assert ks and min(ks) == 3
+    assert launches["packed_support_count"] > before
+
+
+def test_parity_cell_sim_trie_vs_card(cuda):
+    from repro_torch.core.runtime import SimRunner, run_parity_cell
+
+    db = get_dataset("T10I4D100K", scale=0.005, seed=0)
+    before = launches["packed_support_count"]
+    cell = run_parity_cell(db, 0.02, {
+        "sim/trie": lambda: SimRunner(structure="trie", executor="process"),
+        "torch/packed_bitmap": lambda: TorchRunner(store="packed_bitmap")})
+    assert cell.n_itemsets > 0
+    assert launches["packed_support_count"] > before
+    assert cell.backends["sim/trie"]["n_frequent"] == \
+        cell.backends["torch/packed_bitmap"]["n_frequent"]

@@ -1,9 +1,13 @@
 """The PyTorch port stands alone: no module of ``repro_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, and the port's entry
-points refuse to drop quietly to the CPU."""
+``chip_smoke.py`` imports JAX or the JAX package, the port's entry points
+refuse to drop quietly to the CPU, and every port module offers its JAX
+counterpart's public names."""
 
 import ast
+import importlib
+import inspect
 import os
+import pkgutil
 import subprocess
 import sys
 
@@ -37,7 +41,7 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("|")
-    assert int(n_modules) >= 31  # every module: a dropped one shows
+    assert int(n_modules) >= 42  # every module: a dropped one shows
     assert bad == "", f"port pulled in: {bad}"
 
 
@@ -77,3 +81,68 @@ def test_default_device_is_cuda_and_never_falls_back():
     assert MapReduceEngine(device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError):
         make_runner(mesh=object(), device="cpu")
+
+
+# Reference names a port module may lack, each with its reason.
+_UNPORTED = {
+    "JaxRunner": "the device runner is ported as TorchRunner",
+    "ShardedRunner": "the multi-device mesh runner is not ported",
+    "fetch_global": "multi-host gather: the mesh is not ported",
+    "MultihostSpec": "multi-host launch is not ported",
+    "initialize_multihost": "multi-host launch is not ported",
+    "multihost_env": "multi-host launch is not ported",
+    "process_count": "multi-host launch is not ported",
+    "process_index": "multi-host launch is not ported (faults.process_rank)",
+    "ShardingRules": "mesh sharding rules of the LM are not ported",
+    "default_rules": "mesh sharding rules of the LM are not ported",
+    "act_pspec": "mesh sharding rules of the LM are not ported",
+    "batch_pspec": "mesh sharding rules of the LM are not ported",
+    "packed_support_count_pallas": "the Pallas kernel is ported as the CUDA "
+                                   "kernel packed_support_count",
+    "support_count_pallas": "the Pallas kernel is ported as the CUDA kernel "
+                            "support_count",
+    "ServeEngine": "the LM decode engine is not ported",
+}
+# Names a reference module imports for its own use (not part of its API):
+# (port module, name).
+_IMPORTED_ONLY = {
+    ("repro_torch.core.runtime.device_loop", "MapReduceEngine"),
+    ("repro_torch.core.runtime.engine", "ITEM_PAD"),
+}
+
+
+def _public(mod, pkg):
+    """``__all__``, else the module's non-underscore names that are neither
+    modules nor functions and classes imported from outside ``pkg``."""
+    if hasattr(mod, "__all__"):
+        return set(mod.__all__)
+    out = set()
+    for name, value in vars(mod).items():
+        if name.startswith("_") or inspect.ismodule(value):
+            continue
+        origin = getattr(value, "__module__", None)
+        if (origin is not None and callable(value)
+                and not (origin == pkg or origin.startswith(pkg + "."))):
+            continue
+        out.add(name)
+    return out
+
+
+def test_port_offers_the_reference_public_names():
+    pytest.importorskip("jax")
+    import repro_torch
+
+    checked = 0
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        ref_name = "repro" + info.name[len("repro_torch"):]
+        try:
+            ref = importlib.import_module(ref_name)
+        except ImportError:
+            continue  # port-only module (e.g. the kernel build)
+        port = importlib.import_module(info.name)
+        missing = {n for n in _public(ref, "repro") - _public(port, "repro_torch")
+                   if n not in _UNPORTED
+                   and (info.name, n) not in _IMPORTED_ONLY}
+        assert not missing, f"{info.name} lacks {sorted(missing)}"
+        checked += 1
+    assert checked >= 40

@@ -21,6 +21,7 @@ from test_torch_stores import one_torch_thread  # noqa: E402,F401
 from repro_torch.core.miner import FrequentItemsetMiner as TMiner  # noqa: E402
 from repro_torch.core.runtime import strategies  # noqa: E402
 from repro_torch.core.runtime.job import CountJob, JobProfile  # noqa: E402
+from repro_torch.core.runtime.runners import make_runner  # noqa: E402
 from repro_torch.core.stores import ARRAY_STORES  # noqa: E402
 
 CONFIGS = [("perfect_hash", False), ("bitmap", False), ("bitmap", True),
@@ -157,9 +158,15 @@ def test_job_profile_fields_match_reference():
 
 def test_unported_options_raise():
     for kwargs in ({"mesh": object()}, {"cand_axes": ("cand",)},
-                   {"checkpoint_dir": "ckpt"}, {"runner": object()}):
+                   {"data_axes": ("data", "model")}):
         with pytest.raises(NotImplementedError):
             TMiner(device="cpu", **kwargs)
+    # Caller-supplied runners and level checkpoints are ported; a runner
+    # owns its backend config, as in the JAX package.
+    runner = make_runner(store="bitmap", device="cpu")
+    assert TMiner(runner=runner, checkpoint_dir="ckpt").runner is runner
+    with pytest.raises(ValueError, match="not both"):
+        TMiner(runner=runner, store="bitmap")
     # The ladder and FPC/DPC are ported; the ladder fuses SPC only, as in
     # the JAX package.
     for name in ("fpc", "dpc"):
