@@ -74,9 +74,11 @@ result line) when it fails:
    the launcher runs once with the README's arguments;
 7. the paper's Hadoop model beside the card, faults and checkpoints:
    ``run_parity_cell`` on T10I4D100K (1.0, 0.01) over
-   ``sim/hash_table_trie``, ``sim/trie`` and ``sim/hash_tree`` (4 mappers
-   on a process pool) and ``TorchRunner`` (``packed_bitmap``, ``bitmap``,
-   ``perfect_hash``) on the card; on BMS_WebView_2 (1.0, 0.002)
+   ``sim/hash_table_trie`` and ``sim/trie`` (4 mappers on a process pool)
+   and ``TorchRunner`` (``packed_bitmap``, ``bitmap``, ``perfect_hash``) on
+   the card; ``sim/hash_tree`` against ``packed_bitmap`` on T10I4D100K at
+   scale 0.25 (its digest: that quarter's ``perfect_hash`` SPC mine on the
+   card); on BMS_WebView_2 (1.0, 0.002)
    ``sim/hash_table_trie`` against
    ``packed_bitmap``.  Every digest must equal phase 4's ``perfect_hash``
    SPC mine's.  On BMS_WebView_2, ``device_loss`` at the k = 4 dispatch of
@@ -86,7 +88,27 @@ result line) when it fails:
    kernel exactly for the levels from k = 4 on, with phase 4's answer;
    bit rot of the newest snapshot must fall back one level, and a torn
    write must never commit.  ``FaultPlan.chaos`` on ``sim/trie``'s thread
-   pool over BMS_WebView_2 at scale 0.25 must equal a fault-free mine.
+   pool over BMS_WebView_2 at scale 0.25 must equal a fault-free mine;
+8. the sharded runner over ``torch.distributed``, each cluster spawned
+   through ``repro_torch.launch.multihost`` (ranks are this script in
+   worker mode, ``--phase8-worker``, reading phase 4's data from a
+   temporary file): (a) one NCCL rank on 1x1 meshes: T10I4D100K SPC
+   through ``packed_bitmap`` and ``bitmap`` and BMS_WebView_2's trimmed
+   ladder through ``bitmap``, each rank's launches equal to phase 4's, and
+   BMS_WebView_2 SPC through ``TorchRunner`` and the 1x1 ``ShardedRunner``
+   in turns; (e) on that rank, ``MiningService(mesh=make_data_mesh())`` over
+   the first 4 measured batches of phase 6's T10I4D100K exact plan, every
+   answer equal to a ``perfect_hash`` recount; (b) two gloo ranks sharing
+   the card: T10I4D100K SPC (``packed_bitmap``) on 2x1 and 1x2 and
+   BMS_WebView_2's ladder on 2x1; (d) then ``device_loss(k=4, lost=1)``:
+   rank 1 leaves, rank 0 rebuilds a one-rank mesh and resumes from the
+   level checkpoint; (c) ``python -m repro_torch.launch.multihost`` on two
+   gloo ranks, BMS_WebView_2, ``--kill-k 3``: rank 1 exits with 137, one
+   rank is relaunched from the checkpoint (``restored_step`` >= 2, the
+   clean run's counting jobs).  Every answer must equal phase 4's
+   ``perfect_hash`` SPC mine, and each rank's kernel launches what its
+   waves ask for (its row blocks x candidate chunks) or its ladder levels
+   (its rows).
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -841,7 +863,8 @@ def check_sound(window, res, recount):
     return drift
 
 
-def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
+def serve_run(name, batches, warm, cfg, store, program, refs, log_launches,
+              mesh=None):
     """One service through one program on the card: warm the window with
     ``warm`` batches and a cold exact query, then one measured step per
     remaining batch.  ``program`` is ``"exact"`` (ingest, query),
@@ -856,7 +879,8 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
     missing there is recounted by the ``perfect_hash`` ladder miner
     (``device_loop=True``) over ``svc.window()``.  Every exact answer must
     equal the recount, every stale one be sound under its certificate, and
-    the kernel's launches equal what the log saw dispatched."""
+    the kernel's launches equal what the log saw dispatched.  With ``mesh``
+    the service counts through ``ShardedRunner`` on it."""
     import numpy as np
     from repro_torch.core.miner import FrequentItemsetMiner
     from repro_torch.core.stores import ITEM_PAD
@@ -864,7 +888,7 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
         launches, pad_copies, reset_launches)
     from repro_torch.serve import MiningService
 
-    from repro_torch.core.runtime import TorchRunner
+    from repro_torch.core.runtime import make_runner
 
     kernel = KERNEL_OF.get(store)
     steps, recount_s, one_row = [], [], []
@@ -872,8 +896,9 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches):
     reset_launches()
     with ServeLog() as log:
         t0 = time.perf_counter()
-        svc = MiningService(runner=TorchRunner(
-            store=store, cand_block=cand_block, device="cuda"), **cfg)
+        svc = MiningService(runner=make_runner(
+            store=store, cand_block=cand_block, mesh=mesh, device="cuda"),
+            **cfg)
         for b in batches[:warm]:
             svc.ingest(b)
         cold = svc.query()
@@ -1407,12 +1432,22 @@ def hadoop_phase(workloads, bases, get_dataset):
     data = {name: (support, db) for name, support, db in workloads}
     support, t10 = data["T10I4D100K"]
     stores = ["packed_bitmap", "bitmap", "perfect_hash"]
-    factories = {f"sim/{s}": sim(s)
-                 for s in ("hash_table_trie", "trie", "hash_tree")}
+    factories = {f"sim/{s}": sim(s) for s in ("hash_table_trie", "trie")}
     factories.update({f"torch/{s}": card(s) for s in stores})
     rec["t10"] = parity_cell("T10I4D100K", t10, support, factories,
                              bases["T10I4D100K"], stores)
     by_path["cell_t10"] = rec["t10"]["launches"]
+    # sim/hash_tree takes 46.7-89.5 s at full scale on the H100 (its leaf
+    # scans): it runs on T10I4D100K at scale 0.25, against that quarter's
+    # perfect_hash SPC mine on the card, to leave phase 8 its time.
+    quarter = get_dataset("T10I4D100K", 0.25, seed=0)
+    qbase, _ = mine(quarter, support, "perfect_hash")
+    rec["t10_quarter"] = parity_cell(
+        "T10I4D100K@0.25", quarter, support,
+        {"sim/hash_tree": sim("hash_tree"),
+         "torch/packed_bitmap": card("packed_bitmap")},
+        qbase.itemsets, ["packed_bitmap"])
+    by_path["cell_t10_quarter"] = rec["t10_quarter"]["launches"]
     support, bms = data["BMS_WebView_2"]
     rec["bms"] = parity_cell(
         "BMS_WebView_2", bms, support,
@@ -1434,10 +1469,370 @@ def hadoop_phase(workloads, bases, get_dataset):
     return rec, by_path
 
 
+# -- phase 8: the sharded runner on torch.distributed --------------------------
+
+class LadderLog:
+    """Records the rows this rank counts at every ladder level while it is
+    active, so a sharded ladder's launches follow from them (one pass over
+    the row blocks a level); on one rank they are each level's ``n_pad``."""
+
+    def __enter__(self):
+        from repro_torch.core.runtime.device_loop import LevelLadder
+
+        self.rows = []
+        self._orig = orig = LevelLadder._count
+
+        def count(lad, cand_safe):
+            self.rows.append(int(lad._padded.shape[0]))
+            return orig(lad, cand_safe)
+
+        LevelLadder._count = count
+        return self
+
+    def expected(self) -> int:
+        return sum(math.ceil(r / BLOCK_N) for r in self.rows)
+
+    def __exit__(self, *exc):
+        from repro_torch.core.runtime.device_loop import LevelLadder
+
+        LevelLadder._count = self._orig
+
+
+def sharded_mine(db, support, store, shape, ladder=False, runner=None,
+                 split=None, **options):
+    """One mine of this rank through ``ShardedRunner`` on a ``shape`` =
+    (n_data, n_cand) mesh (n_cand 0: the 1-D data mesh), or through
+    ``runner``.  Launch counts are zeroed just before the mine and read
+    just after; the expected count follows from the waves (host loop:
+    this rank's row blocks x candidate chunks of every wave) or from the
+    rows counted at every ladder level.  ``split`` = (waves, rows): the
+    first ``waves`` waves counted ``rows`` rows a rank (before an elastic
+    rebuild), the rest the final runner's."""
+    from repro_torch.core.miner import FrequentItemsetMiner
+    from repro_torch.core.runtime import ShardedRunner
+    from repro_torch.kernels.support_count import launches, reset_launches
+    from repro_torch.launch.mesh import make_data_cand_mesh, make_data_mesh
+
+    if runner is None:
+        n_data, n_cand = shape
+        mesh = (make_data_cand_mesh(n_data, n_cand) if n_cand
+                else make_data_mesh(n_data))
+        runner = ShardedRunner(store=store, mesh=mesh,
+                               cand_axes=("cand",) if n_cand else ())
+    with WaveLog() as waves, LadderLog() as levels:
+        reset_launches()
+        t0 = time.perf_counter()
+        miner = FrequentItemsetMiner(min_support=support, runner=runner,
+                                     device_loop=ladder, **options)
+        res = miner.mine(db)
+        wall = time.perf_counter() - t0
+        got = dict(launches)
+    eng = miner.active_runner.engine
+    if ladder:
+        expected = levels.expected()
+    else:
+        before, rows = split or (0, 0)
+        expected = sum(
+            math.ceil((rows if i < before else eng._local_enc.n_transactions)
+                      / BLOCK_N) * math.ceil(c / CAND_BLOCK)
+            for i, c in enumerate(waves.sizes))
+    kernel = KERNEL_OF.get(store)
+    want = {k: (expected if k == kernel else 0) for k in got}
+    if got != want:
+        raise AssertionError(f"sharded {store} {shape} ladder={ladder}: "
+                             f"launches {got} != {want}")
+    n_waves = len(levels.rows) if ladder else len(waves.sizes)
+    return res, {"store": store, "shape": shape and list(shape),
+                 "ladder": ladder,
+                 "wall_s": wall, "launches": got,
+                 "local_rows": eng._local_enc.n_transactions,
+                 "waves": waves.sizes, "level_rows": levels.rows,
+                 "collectives": eng.collectives,
+                 "collective_ms": eng.collective_seconds * 1e3,
+                 "collective_ms_per_wave": (eng.collective_seconds * 1e3
+                                            / max(1, n_waves)),
+                 "describe": miner.active_runner.describe()}
+
+
+def phase8_worker(spec_path: str) -> int:
+    """One rank of a phase-8 cluster (``launch_cluster`` sets the env trio):
+    joins the group, runs the spec's programs, writes its records and
+    leaves through ``exit_rank``."""
+    import pickle
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.distributed import ctx
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    ctx.initialize_multihost(device="cuda", backend=spec["backend"],
+                             timeout=600)
+    from repro_torch.core.runtime import DeviceLostError, FaultPlan, TorchRunner
+    from repro_torch.core.runtime import faults as F
+    from repro_torch.kernels.support_count import build
+
+    build.build_all()  # phase 1 built them: this only loads
+    rank = ctx.process_index()
+    with open(spec["data"], "rb") as f:
+        data = pickle.load(f)  # written by this script's parent process
+    recs = []
+    for prog in spec["programs"]:
+        name, kind = prog["dataset"], prog["kind"]
+        support, db = data[name]
+        rec = {"kind": kind, "dataset": name}
+        if kind == "mine":
+            res, info = sharded_mine(db, support, prog["store"],
+                                     prog["shape"], prog.get("ladder", False))
+            rec.update(info)
+        elif kind == "walls":
+            # TorchRunner and the 1x1 sharded runner in turns (torch,
+            # sharded, sharded, torch): the collectives' cost at world 1.
+            rec["walls"] = []
+            for which in ("torch", "sharded", "sharded", "torch"):
+                runner = (TorchRunner(store=prog["store"], device="cuda")
+                          if which == "torch" else None)
+                res, info = sharded_mine(db, support, prog["store"],
+                                         prog["shape"], runner=runner)
+                rec["walls"].append([which, info["wall_s"],
+                                     info["collective_ms"]])
+                if which == "sharded":
+                    rec.update(info)
+        elif kind == "elastic":
+            plan = FaultPlan(F.device_loss(k=prog["k"], lost=prog["lost"]))
+            from repro_torch.core.runtime import ShardedRunner
+            from repro_torch.launch.mesh import make_data_mesh
+
+            runner = ShardedRunner(store=prog["store"], mesh=make_data_mesh(),
+                                   fault_plan=plan)
+            try:
+                world = ctx.process_count()
+                res, info = sharded_mine(
+                    db, support, prog["store"], None, runner=runner,
+                    split=(prog["k"] - 2, -(-len(db) // world)),
+                    checkpoint_dir=spec["ckpt"])
+                rec.update(info)
+            except DeviceLostError as err:
+                res = None
+                rec.update(lost=True, k=err.k)
+            rec["injected"] = [kind for kind, _ in plan.injected]
+        else:  # serve
+            from repro_torch.data import basket_stream
+            from repro_torch.kernels.support_count import launches
+            from repro_torch.launch.mesh import make_data_mesh
+
+            cfg = dict(prog["cfg"])
+            batches = [ab.transactions for ab in basket_stream(
+                name, batch_size=prog["batch"], scale=prog["scale"], seed=0,
+                repeat=True, max_batches=cfg["n_slots"] + prog["measured"])]
+            counts = {k: 0 for k in launches}
+            rec.update(serve_run(name, batches, cfg["n_slots"], cfg,
+                                 prog["store"], "exact", {}, counts,
+                                 mesh=make_data_mesh()))
+            res = None
+        if res is not None:
+            rec["itemsets"] = sorted([list(s), int(c)]
+                                     for s, c in res.itemsets.items())
+            rec["counting_jobs"] = sum(1 for p in res.levels if p.k >= 2)
+        rec["rank"] = rank
+        recs.append(rec)
+        print(f"phase 8 rank {rank}: {kind} {name} "
+              + " ".join(f"{k}={rec[k]}" for k in (
+                  "store", "shape", "ladder", "wall_s", "launches",
+                  "collectives", "collective_ms_per_wave", "lost")
+                  if k in rec), flush=True)
+        if rec.get("lost"):
+            break  # a lost rank leaves the cluster's remaining programs
+    with open(f"{spec['out']}.{rank}", "w") as f:
+        json.dump(recs, f)
+    from repro_torch.launch.multihost import exit_rank
+
+    exit_rank()
+
+
+def run_cluster(tmp, tag, n, backend, programs, ckpt=None):
+    """Launch ``n`` ranks of this script in worker mode; returns each rank's
+    records."""
+    from repro_torch.launch.multihost import launch_cluster
+
+    spec = {"backend": backend, "programs": programs,
+            "data": os.path.join(tmp, "data.pkl"),
+            "out": os.path.join(tmp, tag), "ckpt": ckpt}
+    path = os.path.join(tmp, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src")
+    t0 = time.perf_counter()
+    launch_cluster([sys.executable, os.path.abspath(__file__),
+                    "--phase8-worker", path], n, base_env=env, timeout=600)
+    wall = time.perf_counter() - t0
+    recs = []
+    for r in range(n):
+        with open(f"{spec['out']}.{r}") as f:
+            recs.append(json.load(f))
+    print(f"phase 8 cluster {tag}: {n} rank(s), {backend}, {wall:.1f} s")
+    return recs, wall
+
+
+def sharded_phase(workloads, bases, mines, scale=1.0, serve=None):
+    """Phase 8: ``ShardedRunner`` over ``torch.distributed`` on the card.
+    (a) one NCCL rank, 1x1 meshes, full width; (e) the service on that
+    rank's data mesh; (b) two gloo ranks on this card, 2x1 and 1x2;
+    (d) a device loss on them; (c) the multi-host supervisor relaunching
+    one rank after a killed worker.  Every answer must equal phase 4's
+    ``perfect_hash`` SPC mine, every rank's kernel launches what its waves
+    or ladder rows ask for.  ``scale`` is the workloads' (the supervisor
+    generates its own BMS_WebView_2 at it, the service its stream), and
+    ``serve`` = (batch size, service config), phase 6's T10I4D100K exact
+    plan by default.  Returns (record, launches by path)."""
+    import pickle
+    import shutil
+    import tempfile
+
+    from repro_torch.core.runtime import itemset_digest
+    from repro_torch.kernels.support_count import launches
+
+    t_phase = time.perf_counter()
+    name, batch, cfg = serve_plans()[0][:3] if serve is None else (
+        "T10I4D100K", *serve)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        with open(os.path.join(tmp, "data.pkl"), "wb") as f:
+            pickle.dump({name: (support, db) for name, support, db
+                         in workloads}, f)
+        phase4 = {(m["dataset"], m["path"], m["store"]): m for m in mines}
+
+        def check(rec, what):
+            name = rec["dataset"]
+            got = {tuple(s): c for s, c in rec["itemsets"]}
+            if got != bases[name]:
+                raise AssertionError(f"phase 8 {what}: itemsets/supports "
+                                     f"differ from phase 4's {name} mine")
+            return itemset_digest(got)
+
+        t10 = [("T10I4D100K", "packed_bitmap", [1, 1], False),
+               ("T10I4D100K", "bitmap", [1, 0], False),
+               ("BMS_WebView_2", "bitmap", [1, 1], True)]
+        a, a_s = run_cluster(tmp, "nccl", 1, "nccl", [
+            {"kind": "mine", "dataset": d, "store": s, "shape": sh,
+             "ladder": lad} for d, s, sh, lad in t10] + [
+            {"kind": "walls", "dataset": "BMS_WebView_2",
+             "store": "packed_bitmap", "shape": [1, 1]},
+            {"kind": "serve", "dataset": name, "store": "packed_bitmap",
+             "measured": 4, "batch": batch, "cfg": cfg, "scale": scale}])
+        b_progs = [("T10I4D100K", "packed_bitmap", [2, 0], False),
+                   ("T10I4D100K", "packed_bitmap", [1, 2], False),
+                   ("BMS_WebView_2", "packed_bitmap", [2, 0], True)]
+        ckpt = os.path.join(tmp, "elastic_ckpt")
+        b, b_s = run_cluster(tmp, "gloo", 2, "gloo", [
+            {"kind": "mine", "dataset": d, "store": s, "shape": sh,
+             "ladder": lad} for d, s, sh, lad in b_progs] + [
+            {"kind": "elastic", "dataset": "BMS_WebView_2",
+             "store": "packed_bitmap", "k": 4, "lost": 1}], ckpt=ckpt)
+        by_path = {}
+        out = {"nccl_s": a_s, "gloo_s": b_s, "runs": []}
+        for rank_recs, tag in ((a, "nccl"), (b, "gloo")):
+            for rec in [r for recs in rank_recs for r in recs]:
+                counts = by_path.setdefault(f"sharded_{tag}",
+                                            {k: 0 for k in launches})
+                for k, v in rec.get("launches", {}).items():
+                    counts[k] += v
+                if "itemsets" in rec:
+                    rec["digest"] = check(rec, f"{tag} {rec['kind']} "
+                                          f"{rec.get('store')} "
+                                          f"{rec.get('shape')}")
+                    rec.pop("itemsets")
+                out["runs"].append(dict(rec, cluster=tag))
+        # (a): one rank's launches equal TorchRunner's in phase 4.
+        for rec in a[0]:
+            if rec["kind"] != "mine":
+                continue
+            path = "ladder" if rec["ladder"] else "spc"
+            want = phase4[(rec["dataset"], path, rec["store"])]["launches"]
+            if rec["launches"] != want:
+                raise AssertionError(f"NCCL 1x1 {rec['store']} {path}: "
+                                     f"launches {rec['launches']} != phase "
+                                     f"4's {want}")
+        # (b): both ranks agree; the 2x1 host loop counts half the rows.
+        for r0, r1 in zip(b[0], b[1]):
+            if r0["kind"] == "mine" and (r0["digest"], r0["launches"]) != (
+                    r1["digest"], r1["launches"]):
+                raise AssertionError(f"gloo ranks disagree: {r0} {r1}")
+        # (d): rank 1 is the lost device, rank 0 finishes alone.
+        lost, survivor = b[1][-1], b[0][-1]
+        if not (lost.get("lost") and lost["k"] == 4
+                and survivor["kind"] == "elastic" and "digest" in survivor
+                and survivor["describe"] == "sharded/packed_bitmap"
+                and lost["injected"] == survivor["injected"]
+                == ["device_loss"]):
+            raise AssertionError(f"elastic: {survivor} / {lost}")
+        # (c): the supervisor relaunches one rank from the checkpoint.
+        support = dict((n, s) for n, s, _ in workloads)["BMS_WebView_2"]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "src")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.multihost",
+             "--processes", "2", "--device", "cuda", "--backend", "gloo",
+             "--dataset", "BMS_WebView_2", "--scale", str(scale),
+             "--min-support", str(support), "--store", "packed_bitmap",
+             "--max-k", "16", "--kill-k", "3", "--kill-process", "1",
+             "--checkpoint-dir", os.path.join(tmp, "mh_ckpt"),
+             "--timeout", "500"],
+            env=env, capture_output=True, text=True, timeout=600)
+        sup_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"supervisor failed:\n{proc.stderr[-4000:]}")
+        line = next(x for x in proc.stdout.splitlines()
+                    if x.startswith("MULTIHOST_OK "))
+        summary = json.loads(line[len("MULTIHOST_OK "):])
+        result = summary.pop("result")
+        clean_jobs = sum(1 for lv in phase4[("BMS_WebView_2", "spc",
+                                             "perfect_hash")]["levels"]
+                         if lv[0] >= 2)
+        digest = check(dict(result, dataset="BMS_WebView_2"), "supervisor")
+        if not (summary["relaunches"] == 1 and summary["final_processes"] == 1
+                and result["restored_step"] is not None
+                and result["restored_step"] >= 2
+                and result["counting_jobs"] == clean_jobs):
+            raise AssertionError(f"supervisor: {summary} restored "
+                                 f"{result['restored_step']} jobs "
+                                 f"{result['counting_jobs']} != {clean_jobs}")
+        out["supervisor"] = dict(summary, wall_s=sup_s, digest=digest,
+                                 restored_step=result["restored_step"],
+                                 counting_jobs=result["counting_jobs"])
+        print(f"phase 8 supervisor: worker {summary['failures']} died, "
+              f"relaunched {summary['final_processes']} process from step "
+              f"{result['restored_step']}, {result['counting_jobs']} counting "
+              f"jobs (clean {clean_jobs}), digest {digest} == phase 4, "
+              f"{sup_s:.1f} s")
+        for r in out["runs"]:
+            print(f"phase 8 {r['cluster']} rank {r['rank']} {r['kind']} "
+                  f"{r['dataset']} {r.get('store')} {r.get('shape')} "
+                  f"ladder={r.get('ladder')}: digest {r.get('digest')}, "
+                  f"launches {r.get('launches')}, wall "
+                  f"{r.get('wall_s', 0):.3f} s, {r.get('collectives')} "
+                  f"collectives {r.get('collective_ms', 0):.3f} ms "
+                  f"({r.get('collective_ms_per_wave', 0):.3f} ms a wave)"
+                  + (f", walls {r['walls']}" if "walls" in r else ""))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 8: {out['wall_s']:.1f} s")
+    return out, by_path
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
+    ap.add_argument("--phase8-worker", metavar="SPEC",
+                    help=argparse.SUPPRESS)  # one rank of a phase-8 cluster
     args = ap.parse_args()
+    if args.phase8_worker:
+        return phase8_worker(args.phase8_worker)
 
     import torch
 
@@ -1512,6 +1907,10 @@ def main() -> int:
     # Phase 7: the Hadoop model beside the card, faults and checkpoints.
     hadoop, hadoop_paths = hadoop_phase(workloads, bases, get_dataset)
     by_path.update(hadoop_paths)
+    # Phase 8: the sharded runner over torch.distributed, every rank's
+    # launches counted in its own process.
+    sharded, sharded_paths = sharded_phase(workloads, bases, mines)
+    by_path.update(sharded_paths)
     # Host phases of the T10I4D100K mine that no JobProfile row holds: the
     # ingest pass and the speculative C3 generated while C2 counts.
     from repro_torch.core.itemsets import apriori_gen_matrix
@@ -1540,7 +1939,7 @@ def main() -> int:
                        "mines": mines, "host": host,
                        "out_of_core": {"mines": ooc_mines, "host": ooc_host},
                        "serve": {"runs": serve_runs, "cli_s": cli_s},
-                       "hadoop": hadoop,
+                       "hadoop": hadoop, "sharded": sharded,
                        "device": device,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": rows}))

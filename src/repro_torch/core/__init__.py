@@ -1,8 +1,9 @@
 """MapReduce Apriori with pluggable candidate stores, on PyTorch.
 
 Drivers (``FrequentItemsetMiner``, ``run_mapreduce_apriori``) submit jobs
-to runners: ``SimRunner`` (the paper's Hadoop cost model) or
-``TorchRunner`` (one device), which report through one ``JobProfile``
+to runners: ``SimRunner`` (the paper's Hadoop cost model),
+``TorchRunner`` (one device) or ``ShardedRunner`` (a mesh of
+``torch.distributed`` ranks), which report through one ``JobProfile``
 schema.
 """
 
@@ -12,6 +13,7 @@ from repro_torch.core.runtime import (
     CountJob,
     JobProfile,
     MapReduceEngine,
+    ShardedRunner,
     SimRunner,
     TorchRunner,
 )
@@ -23,6 +25,7 @@ __all__ = [
     "MapReduceEngine",
     "CountJob",
     "JobProfile",
+    "ShardedRunner",
     "SimRunner",
     "TorchRunner",
     "HadoopSimResult",

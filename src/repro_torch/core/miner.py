@@ -12,22 +12,25 @@ Per-level checkpoints ride the snapshot store (``distributed.checkpoint``):
 one atomic, digest-stamped snapshot per completed level, so torn writes are
 ignored, bit rot is detected and quarantined, and a corrupt newest level
 falls back to the previous one.  On ``DeviceLostError`` (a ``device_loss``
-fault of the runner's ``FaultPlan``) one card has no smaller mesh to
-rebuild onto, so the error propagates after the runner's outstanding work
-is abandoned; a new miner with the same ``checkpoint_dir`` on a fresh
-runner resumes, and its itemsets AND supports equal a fault-free run's.
+fault of the runner's ``FaultPlan``) a mesh runner is rebuilt on the ranks
+that survive (``_elastic_rebuild``) and the mine resumes from the last
+level checkpoint; the lost ranks leave ``mine()`` with the error.  On one
+device there is nothing to rebuild onto, so the error propagates after the
+runner's outstanding work is abandoned; a new miner with the same
+``checkpoint_dir`` on a fresh runner resumes.  Either way the itemsets AND
+supports equal a fault-free run's.
 
 Any runner works (``runner=``): ``TorchRunner`` (array-layout stores on the
-card) or ``SimRunner`` (the paper's Hadoop cost model over the
-Java-equivalent structures); all report the same ``JobProfile`` rows.  It
-takes the JAX miner's arguments plus ``device`` (default ``"cuda"``; a
-CUDA-less machine raises unless the caller asks for ``"cpu"``).  ``mine``
+card), ``ShardedRunner`` (the same over a mesh of ranks; built here from
+``mesh=``, ``data_axes=``, ``cand_axes=``) or ``SimRunner`` (the paper's
+Hadoop cost model over the Java-equivalent structures); all report the same
+``JobProfile`` rows.  It takes the JAX miner's arguments plus ``device``
+(default: the mesh's device type, else ``"cuda"``; a CUDA-less machine
+raises unless the caller asks for ``"cpu"``).  ``mine``
 also takes a ``ChunkedDatasetReader``, which streams every job through
 fixed-size transaction chunks (``device_loop`` must then stay False).
 ``device_loop=True`` runs the SPC levels as the device-resident ladder
-(``runtime/device_loop.py``), trimming the DB per level when ``trim``.  The
-mesh and candidate sharding are not ported yet and raise
-``NotImplementedError``.
+(``runtime/device_loop.py``), trimming the DB per level when ``trim``.
 """
 
 from __future__ import annotations
@@ -91,16 +94,12 @@ class FrequentItemsetMiner:
         elastic_restarts: int = 2,
         device_loop: bool = False,
         trim: bool = True,
-        device="cuda",
+        device=None,
     ) -> None:
-        for given, what in ((mesh is not None, "mesh"),
-                            (bool(cand_axes), "cand_axes"),
-                            (data_axes not in (None, ("data",)), "data_axes")):
-            if given:
-                raise NotImplementedError(f"{what} is not yet ported")
         if runner is not None and (
             any(v is not None
-                for v in (store, block_n, cand_block, encode_ahead))
+                for v in (store, mesh, data_axes, cand_axes, block_n,
+                          cand_block, encode_ahead))
             or inflight is not _UNSET
         ):
             # An explicit runner owns its backend config; silently ignoring
@@ -112,6 +111,9 @@ class FrequentItemsetMiner:
         self.min_support = min_support
         self.store = store if store is not None else "perfect_hash"
         self.strategy = strategy
+        self.mesh = mesh
+        self.data_axes = data_axes if data_axes is not None else ("data",)
+        self.cand_axes = cand_axes if cand_axes is not None else ()
         self.max_k = max_k
         self.block_n = block_n if block_n is not None else 2048
         self.cand_block = cand_block if cand_block is not None else 32_768
@@ -129,19 +131,23 @@ class FrequentItemsetMiner:
         self.trim = trim
         self.checkpoint_dir = checkpoint_dir
         self.runner = runner
-        # How many device losses a single mine() survives.  One card has no
-        # smaller mesh to rebuild onto, so every loss propagates; the knob
-        # is kept for the JAX miner's signature.
+        # How many device losses a single mine() survives before giving up
+        # (each one rebuilds a smaller mesh and resumes).
         self.elastic_restarts = elastic_restarts
         # A caller-supplied runner carries its own device (a SimRunner has
-        # none), so only a runner built here needs a usable one.
+        # none), so only a runner built here needs a usable one; with a
+        # mesh it is the mesh's.
+        if device is None:
+            device = mesh.device_type if mesh is not None else "cuda"
         self.device = resolve_device(device) if runner is None else None
 
     def _make_runner(self) -> BaseRunner:
         if self.runner is not None:
             return self.runner
-        return make_runner(store=self.store, block_n=self.block_n,
-                           cand_block=self.cand_block, inflight=self.inflight,
+        return make_runner(store=self.store, mesh=self.mesh,
+                           data_axes=self.data_axes, cand_axes=self.cand_axes,
+                           block_n=self.block_n, cand_block=self.cand_block,
+                           inflight=self.inflight,
                            encode_ahead=self.encode_ahead, device=self.device)
 
     def _config(self, runner: BaseRunner) -> dict:
@@ -161,9 +167,11 @@ class FrequentItemsetMiner:
         and one ``JobProfile`` per counting job.
 
         On ``DeviceLostError`` the runner is closed (its outstanding work
-        abandoned) and the error propagates: see ``_elastic_rebuild``.  A
-        runner this miner built is closed when the mine ends; a
-        caller-supplied one stays open for its caller.
+        abandoned) and a mesh runner is rebuilt on the surviving ranks,
+        which re-enter the mining loop (restoring the last level checkpoint
+        when ``checkpoint_dir`` is set, recomputing otherwise); see
+        ``_elastic_rebuild``.  A runner this miner built is closed when the
+        mine ends; a caller-supplied one stays open for its caller.
         """
         n = len(transactions)
         min_count = max(1, int(np.ceil(self.min_support * n)))
@@ -186,10 +194,43 @@ class FrequentItemsetMiner:
 
     def _elastic_rebuild(self, runner: BaseRunner,
                          err: DeviceLostError) -> BaseRunner:
-        """A replacement runner on the devices that survive.  The port runs
-        on one card, so nothing survives a loss: re-raise, as the JAX miner
-        does for a single device."""
-        raise err
+        """A replacement runner on the largest mesh the surviving ranks
+        support (the tail of the rank grid is lost).
+
+        Building the survivors' groups is collective over the whole world,
+        so every rank takes part, the lost ones included; a lost rank then
+        re-raises: it *is* the lost device.  Only rank 0 writes checkpoints
+        and it always survives; every level ends in a barrier after its
+        snapshot (``_mine_once``), so the survivors restore what rank 0
+        wrote.  One device, a simulated runner, or a mesh that does not
+        span the world (an earlier loss already shed ranks, which cannot
+        join new groups) re-raise.
+        """
+        engine = getattr(runner, "engine", None)
+        if engine is None or engine.mesh is None:
+            raise err  # nothing to shrink: single-device or simulated runner
+        import torch.distributed as dist
+
+        from repro_torch.core.runtime.runners import ShardedRunner
+        from repro_torch.distributed import elastic
+
+        if engine.mesh.mesh.numel() != dist.get_world_size():
+            raise err
+        survivors = elastic.surviving_devices(engine.mesh, err.lost)
+        if not survivors:
+            raise err
+        mesh = elastic.elastic_data_cand_mesh(
+            survivors, want_cand=bool(engine.cand_axes),
+            device=engine.mesh.device_type)
+        if mesh.get_coordinate() is None:
+            raise err  # this rank was lost
+        return ShardedRunner(
+            store=engine.store_name, mesh=mesh, data_axes=("data",),
+            cand_axes=("cand",) if engine.cand_axes else (),
+            block_n=engine.block_n, cand_block=engine.cand_block,
+            inflight=None if engine.inflight_auto else engine.inflight,
+            encode_ahead=engine.encode_ahead,
+            fault_plan=getattr(runner, "fault_plan", None))
 
     def _mine_once(self, runner: BaseRunner, transactions, n: int,
                    min_count: int) -> MiningResult:
@@ -236,6 +277,11 @@ class FrequentItemsetMiner:
             self._checkpoint(itemsets, levels, level, stats.k + 1, item_map,
                              n, min_count, self._config(runner),
                              fault_plan=getattr(runner, "fault_plan", None))
+            engine = getattr(runner, "engine", None)
+            if self.checkpoint_dir is not None and engine is not None:
+                # Only rank 0 writes: no rank goes on to the next level
+                # (where it may die) before the snapshot is on disk.
+                engine.barrier()
 
         return MiningResult(
             itemsets=itemsets, min_count=min_count, n_transactions=n,

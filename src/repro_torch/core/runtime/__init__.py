@@ -1,12 +1,13 @@
 """Backend-agnostic MapReduce job runtime (PyTorch port).
 
 ``job.py``          ``CountJob`` and ``JobProfile`` (the per-job profile schema).
-``engine.py``       the single-device counting core with the async
-                    double-buffered chunk queue and the device-side Job1.
+``engine.py``       the counting core (one device, or a rank of a mesh with
+                    its collectives) with the async double-buffered chunk
+                    queue and the device-side Job1.
 ``runners.py``      ``BaseRunner``, ``SimRunner`` (the paper's Hadoop cost
                     model over the Java-equivalent structures, with an
-                    optional thread or process pool) and ``TorchRunner``
-                    (one device).
+                    optional thread or process pool), ``TorchRunner``
+                    (one device) and ``ShardedRunner`` (a mesh of ranks).
 ``strategies.py``   the SPC, FPC and DPC level-wise schedulers.
 ``device_loop.py``  the device-resident level ladder (``device_loop=True``)
                     and the device-side SPC cut-back filter.
@@ -46,6 +47,7 @@ from repro_torch.core.runtime.faults import (
 )
 from repro_torch.core.runtime.runners import (
     BaseRunner,
+    ShardedRunner,
     SimRunner,
     TorchRunner,
     make_runner,
@@ -79,6 +81,7 @@ __all__ = [
     "PartialCorruptionError",
     "RetryPolicy",
     "BaseRunner",
+    "ShardedRunner",
     "SimRunner",
     "TorchRunner",
     "make_runner",

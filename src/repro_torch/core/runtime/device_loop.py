@@ -35,8 +35,21 @@ fires at that level's dispatch (``_check_fault``): the engine abandons its
 outstanding work and ``DeviceLostError`` propagates, so the miner's level
 checkpoint is the resume point, exactly as on the host loop.
 
-One device: the engine's ``n_data_shards`` and ``n_cand_shards`` are 1 and
-PyTorch runs eagerly, so there is no sharding and no compiled-step cache.
+**Meshes.**  Each rank holds its own row block of the DB (the engine's
+``place``) and every rank holds the whole level matrix, so candidate
+generation is identical everywhere.  A level's count runs over the rank's
+rows and, under candidate sharding, over its contiguous slice of the
+``c_pad`` rows (``c_pad`` rounds to the cand-shard multiple), then goes
+through the engine's ``reduce_counts`` (``all_reduce`` over data,
+``all_gather`` over cand).  The reference compacts rows globally inside one
+compiled step; here ranks compact their own rows, so the trim first makes
+every rank's item state identical: the live-row count is summed, and the
+width, the alive-item mask and the largest local live count are maxed, over
+data.  Every rank then re-ranks items identically and compacts its rows
+locally, padded to the largest local live count.  ``JobProfile.n_pad`` is
+the reference's global formula (the live count rounded to the data-shard
+multiple), so profiles compare one to one with the reference's on the same
+mesh shape.  PyTorch runs eagerly: there is no compiled-step cache.
 """
 
 from __future__ import annotations
@@ -207,14 +220,16 @@ class LevelLadder:
 
     # -- state ----------------------------------------------------------------
     def _init_state(self, level_mat: np.ndarray) -> None:
-        enc = self.engine._enc
+        enc, local = self.engine._enc, self.engine._local_enc
         dev = self.engine.device
+        # _n_pad is the global padded row count (what the profile reports);
+        # _padded/_bitmap hold this rank's rows only.
         self._n_pad, self._width = enc.padded.shape
         self._f_pad = enc.f_pad
         self._padded = torch.from_numpy(
-            np.ascontiguousarray(enc.padded, dtype=np.int32)).to(dev)
+            np.ascontiguousarray(local.padded, dtype=np.int32)).to(dev)
         self._bitmap = torch.from_numpy(
-            np.ascontiguousarray(enc.bitmap, dtype=np.uint8)).to(dev)
+            np.ascontiguousarray(local.bitmap, dtype=np.uint8)).to(dev)
         self._trans = self._make_inputs()
         # ladder id -> miner dense id; trimming re-ranks ids densely, and
         # this (monotone) map translates results back at the yield boundary.
@@ -239,16 +254,20 @@ class LevelLadder:
 
     # -- the per-level step ---------------------------------------------------
     def _count(self, cand_safe: torch.Tensor) -> torch.Tensor:
+        """Counts of the level's ``c_pad`` rows: this rank's candidate slice
+        over its rows, then the engine's collectives."""
         eng = self.engine
         store = eng.store
+        lo, hi = eng.cand_slice(cand_safe.shape[0])
+        mine = cand_safe[lo:hi]
         kernel_on = getattr(store, "kernel_on", None)
-        c = cand_safe.shape[0]
+        c = mine.shape[0]
         chunk = c if kernel_on is not None and kernel_on(eng.device) \
             else eng.cand_block
-        return torch.cat([
+        return eng.reduce_counts(torch.cat([
             eng._blocked_count(self._trans, store.encode_candidates(
-                cand_safe[i:i + chunk], f_pad=self._f_pad))
-            for i in range(0, c, chunk)])
+                mine[i:i + chunk], f_pad=self._f_pad))
+            for i in range(0, c, chunk)]))
 
     def _step(self, k1: int, c_pad: int, n_pairs: int):
         cand, keep = _gen_prune(self._lvl_dev, self._n_valid)
@@ -276,7 +295,10 @@ class LevelLadder:
         needs k1 of them: exact).  Rows, bitmap columns and item ids are
         re-compacted order-preservingly, so lex order and counts are
         untouched; if no padded dimension would shrink the trim is skipped.
+        On a mesh the sizes and the alive mask are reduced over data first
+        (see the module docstring), so every rank takes the same branch.
         """
+        eng = self.engine
         n_pad, width = self._n_pad, self._width
         f_pad, l_pad = self._f_pad, self._l_pad
         lvl, padded = self._lvl_dev, self._padded
@@ -290,11 +312,20 @@ class LevelLadder:
         safe = torch.where(padded < f_pad, padded, f_pad - 1).to(torch.int64)
         cnt = alive[safe].sum(dim=1)
         live = cnt >= k1
-        max_len = torch.where(live, cnt, 0).max()
-        n_live, n_alive, max_len = (int(x) for x in torch.stack(
-            [live.sum(), alive.sum(), max_len]).tolist())
+        local_live = live.sum()
+        # One SUM (global live rows) and one MAX (alive mask, width, the
+        # largest local live count) over data; no-ops without a mesh.
+        n_live = int(eng.all_reduce_data(local_live.reshape(1).clone()))
+        maxed = eng.all_reduce_data(torch.cat([
+            alive.to(torch.int64),
+            torch.stack([torch.where(live, cnt, 0).max(), local_live])]),
+            op="max")
+        alive = maxed[:f_pad].to(torch.bool)
+        n_alive = int(alive.sum())
+        max_len, rows = (int(x) for x in maxed[f_pad:].tolist())
+        n_local = int(local_live)
 
-        shards = self.engine.n_data_shards
+        shards = eng.n_data_shards
         new_n_pad = min(n_pad, max(shards, _round_up(max(n_live, 1), shards)))
         new_f_pad = min(f_pad, ((n_alive // 128) + 1) * 128)
         # Every live row fits: it has <= max_len alive items, dead rows have
@@ -310,17 +341,20 @@ class LevelLadder:
         remapped = torch.where(hit, new_of_old[safe], int(ITEM_PAD))
         remapped = torch.sort(remapped, dim=1).values[:, :new_width]
         ridx = torch.nonzero(live).squeeze(1)
-        new_padded = torch.full((new_n_pad, new_width), int(ITEM_PAD),
+        # This rank's rows: its live ones, padded to the largest local live
+        # count (one device: exactly new_n_pad).
+        rows = max(1, rows)
+        new_padded = torch.full((rows, new_width), int(ITEM_PAD),
                                 dtype=torch.int32, device=dev)
-        new_padded[:n_live] = remapped[ridx].to(torch.int32)
+        new_padded[:n_local] = remapped[ridx].to(torch.int32)
         # Columns past the alive ones come from the always-zero column.
         cidx = torch.nonzero(alive).squeeze(1)
         cols = torch.full((new_f_pad,), f_pad - 1, dtype=torch.int64,
                           device=dev)
         cols[:n_alive] = cidx
-        new_bitmap = torch.zeros((new_n_pad, new_f_pad), dtype=torch.uint8,
+        new_bitmap = torch.zeros((rows, new_f_pad), dtype=torch.uint8,
                                  device=dev)
-        new_bitmap[:n_live] = self._bitmap[ridx][:, cols]
+        new_bitmap[:n_local] = self._bitmap[ridx][:, cols]
         lsafe = torch.where(lvl < f_pad, lvl, f_pad - 1).to(torch.int64)
         new_lvl = torch.where(lvalid, new_of_old[lsafe], int(ITEM_PAD))
 

@@ -1,15 +1,36 @@
-"""MapReduce counting engine on one PyTorch device (no mesh yet).
+"""MapReduce counting engine on PyTorch, on one device or over a mesh of
+``torch.distributed`` ranks.
 
-Mapper = the per-block count over the placed transaction tensors;
+Mapper = the per-block count over this rank's transaction tensors;
 Combiner = the in-block reduction inside the store's ``count_block`` (sum
-over Nb); Reducer = the sum over row blocks, then host-side min-support
-thresholding in the strategy.  The PyTorch counterpart of the JAX package's
-``core/runtime/engine.py``, single device: there is no ``jit`` (PyTorch
-runs eagerly) and asynchrony is the device stream's own order.
+over Nb); Shuffle + Reducer = the sum over row blocks, then ``all_reduce``
+of the per-shard count vectors over the ``data`` group (the reference's
+``lax.psum``), then host-side min-support thresholding in the strategy.
+The PyTorch counterpart of the JAX package's ``core/runtime/engine.py``:
+there is no ``jit`` (PyTorch runs eagerly) and asynchrony is the device
+stream's own order.
 
 The transaction tensors are placed once and reused across levels; per wave
 only the small (C, k) int32 candidate matrix crosses to the device, and the
 store's ``encode_candidates`` builds its candidate tensors there.
+
+**Meshes** (``mesh=``, a ``DeviceMesh`` from ``launch/mesh.py``; one rank
+drives one device).  ``place`` pads N to the ``data`` shard multiple (pad
+rows go to the tail and match nothing) and keeps this rank's contiguous
+row block ``[r*n/d, (r+1)*n/d)``.  With ``cand_axes`` each wave chunk's
+candidate rows are padded to the ``cand`` shard multiple and this rank
+encodes and counts only its own contiguous slice; the per-shard vectors
+are stitched back by ``all_gather`` over the ``cand`` group.  Integer adds
+and concatenation: counts are identical to one device's.  The collectives
+are issued at *dispatch*, in FIFO order, so every rank issues the same
+collectives in the same order whatever its queue depth or ``drain_ready``
+timing; they run on every mesh, size-1 groups included, so a one-card
+mesh drives the same path as a cluster.  A synchronous collective makes
+the current stream wait for it on NCCL (the host goes on) and blocks the
+host until it is done on gloo; either way the FIFO entry's CUDA event is
+recorded after it, so ``drain_ready`` never reads an unreduced vector.
+``count_block_async`` (out-of-core chunks, serving deltas) stays
+un-sharded, as in the reference: every rank counts the whole block.
 
 Wave dispatch is asynchronous and double-buffered at both stages:
 ``count_candidates_async`` splits a wave into ``cand_block`` chunks; up to
@@ -19,23 +40,23 @@ fetched to the host.  Results resolve strictly in dispatch order, so counts
 are identical at any depth; ``inflight=0`` runs chunk by chunk and
 ``inflight=None`` sizes the depth from a measured chunk.
 
-``count_block_async`` counts a wave over an ad-hoc encoded block instead of
-the placed DB (each chunk of an out-of-core mine), through the same FIFO.
-
 Job1 (the 1-itemset histogram) is a device job too: ``count_items_device``
-bincounts the padded transaction matrix.
+bincounts this rank's rows of the padded transaction matrix and reduces
+over ``data`` like every other counting job.
 """
 
 from __future__ import annotations
 
 import collections
 import time
-from typing import Deque, List, Optional
+from typing import Deque, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.stores import ARRAY_STORES, EncodedDB, pad_candidates
+from repro_torch.core.stores.base import ITEM_PAD
+from repro_torch.distributed.ctx import fetch_global
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -89,11 +110,6 @@ class PendingCounts:
 
 
 class MapReduceEngine:
-    # One device: the level ladder's pad formulas take these from the
-    # JAX package's mesh-aware engine.
-    n_data_shards = 1
-    n_cand_shards = 1
-
     def __init__(
         self,
         store: str = "perfect_hash",
@@ -101,11 +117,23 @@ class MapReduceEngine:
         cand_block: int = 32_768,
         inflight: Optional[int] = 1,
         encode_ahead: int = 2,
-        device="cuda",
+        device=None,
+        mesh=None,
+        data_axes: Tuple[str, ...] = ("data",),
+        cand_axes: Tuple[str, ...] = (),
     ) -> None:
         if store not in ARRAY_STORES:
             raise ValueError(f"unknown store {store!r}; pick from {list(ARRAY_STORES)}")
-        self.device = resolve_device(device)
+        if cand_axes and mesh is None:
+            raise ValueError("cand_axes requires a mesh with those axes")
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self.cand_axes = tuple(cand_axes)
+        self._data_group = self._cand_group = None
+        self._data_index = self._cand_index = 0
+        if mesh is not None:
+            device = self._join_mesh(mesh, device)
+        self.device = resolve_device("cuda" if device is None else device)
         self.store = ARRAY_STORES[store]
         self.store_name = store
         self.block_n = block_n
@@ -124,23 +152,78 @@ class MapReduceEngine:
         self.inflight_retunes = 0
         self._trans_device: Optional[dict] = None
         self._enc: Optional[EncodedDB] = None
+        self._local_enc: Optional[EncodedDB] = None
         # FIFO of (pending, slot, device_counts, n_valid, done_event).
         self._queue: Deque[tuple] = collections.deque()
+        # Host seconds spent issuing collectives, and how many (telemetry).
+        self.collective_seconds = 0.0
+        self.collectives = 0
+
+    def _join_mesh(self, mesh, device):
+        """Check the mesh's axes, find this rank's place on it and the groups
+        of its two roles; returns the device (the mesh's type; a ``device``
+        of another type raises)."""
+        names = tuple(mesh.mesh_dim_names or ())
+        missing = [a for a in self.data_axes + self.cand_axes
+                   if a not in names]
+        if missing:
+            raise ValueError(f"mesh has axes {list(names)}, missing {missing}")
+        if len(self.data_axes) > 1 or len(self.cand_axes) > 1:
+            raise ValueError("data_axes and cand_axes name at most one mesh "
+                             "axis each")
+        if device is not None and torch.device(device).type != mesh.device_type:
+            raise ValueError(f"device {str(device)!r} disagrees with the "
+                             f"mesh's device type {mesh.device_type!r}")
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not on the mesh")
+        if self.data_axes:
+            self._data_index = int(coord[names.index(self.data_axes[0])])
+            self._data_group = mesh.get_group(self.data_axes[0])
+        if self.cand_axes:
+            self._cand_index = int(coord[names.index(self.cand_axes[0])])
+            self._cand_group = mesh.get_group(self.cand_axes[0])
+        return mesh.device_type
 
     # -- placement ---------------------------------------------------------
+    def _axis_size(self, axes: Tuple[str, ...]) -> int:
+        if self.mesh is None or not axes:
+            return 1
+        names = tuple(self.mesh.mesh_dim_names)
+        return int(self.mesh.mesh.shape[names.index(axes[0])])
+
+    @property
+    def n_data_shards(self) -> int:
+        return self._axis_size(self.data_axes)
+
+    @property
+    def n_cand_shards(self) -> int:
+        return self._axis_size(self.cand_axes)
+
     def abandon(self) -> None:
         """Void every outstanding chunk handle and drop the dispatch queue."""
         for entry in self._queue:
             entry[0]._cancelled = True
         self._queue.clear()
 
+    def _row_block(self, n: int) -> Tuple[int, int]:
+        """This rank's rows of an n-row matrix padded to the data shards."""
+        per = n // self.n_data_shards
+        return self._data_index * per, (self._data_index + 1) * per
+
     def place(self, enc: EncodedDB) -> None:
-        """Copy the store's transaction tensors to the device; keep them."""
+        """Pad N to the data shard multiple and copy this rank's row block
+        of the store's transaction tensors to the device; keep them."""
         self.abandon()  # handles from a prior DB are void
-        trans = self.store.transaction_inputs(enc)
+        shards = self.n_data_shards
+        n_padded = -(-enc.n_transactions // shards) * shards
+        enc = enc.pad_transactions_to(n_padded)
+        local = enc.row_block(*self._row_block(n_padded))
+        trans = self.store.transaction_inputs(local)
         self._trans_device = {k: torch.from_numpy(np.ascontiguousarray(v))
                               .to(self.device) for k, v in trans.items()}
         self._enc = enc
+        self._local_enc = local
 
     def _blocked_count(self, trans: dict, cands: dict) -> torch.Tensor:
         """Mapper body: a loop over Nb-row blocks bounds peak (Nb, C) memory;
@@ -160,20 +243,84 @@ class MapReduceEngine:
                 {k: v[usable:] for k, v in trans.items()}, cands)
         return partial
 
+    # -- collectives -----------------------------------------------------------
+    def all_reduce_data(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` reduced (``"sum"`` or ``"max"``) over the data group, in
+        place; a no-op without a mesh."""
+        if self.mesh is None or self._data_group is None:
+            return t
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
+                        else dist.ReduceOp.MAX, group=self._data_group)
+        self.collective_seconds += time.perf_counter() - t0
+        self.collectives += 1
+        return t
+
+    def reduce_counts(self, local: torch.Tensor) -> torch.Tensor:
+        """Per-shard counts of this rank's candidate slice over its rows ->
+        the wave's whole count vector: ``all_reduce`` over data (shuffle +
+        reduce), then ``all_gather`` over cand (the stitch).  The identity
+        without a mesh."""
+        if self.mesh is None:
+            return local
+        local = self.all_reduce_data(local.contiguous())
+        if self._cand_group is None:
+            return local
+        import torch.distributed as dist
+
+        t0 = time.perf_counter()
+        parts = [torch.empty_like(local) for _ in range(self.n_cand_shards)]
+        dist.all_gather(parts, local, group=self._cand_group)
+        self.collective_seconds += time.perf_counter() - t0
+        self.collectives += 1
+        return torch.cat(parts)
+
+    def barrier(self) -> None:
+        """Hold the host until every rank of the mesh got here: a sum over
+        data, then over cand (together they span the grid), fetched to the
+        host.  A no-op without a mesh."""
+        if self.mesh is None:
+            return
+        import torch.distributed as dist
+
+        t = torch.ones(1, dtype=torch.int64, device=self.device)
+        for group in (self._data_group, self._cand_group):
+            if group is not None:
+                dist.all_reduce(t, group=group)
+        int(t.item())
+
+    def cand_slice(self, n_rows: int) -> Tuple[int, int]:
+        """This rank's rows of a candidate matrix padded to the cand shards."""
+        per = n_rows // self.n_cand_shards
+        return self._cand_index * per, (self._cand_index + 1) * per
+
     # -- counting ------------------------------------------------------------
-    def _dispatch_encode(self, chunk: np.ndarray, f_pad: int) -> dict:
+    def _dispatch_encode(self, chunk: np.ndarray, f_pad: int,
+                         sharded: bool = True) -> dict:
         """Ship one padded (C, k) chunk and dispatch its device-side encode
-        (nothing here waits for the device)."""
-        cand_p = pad_candidates(chunk, f_pad)
+        (nothing here waits for the device).  ``sharded``: under candidate
+        sharding, pad C to the cand shard multiple and encode only this
+        rank's slice (the shard-local encode)."""
+        shards = self.n_cand_shards if sharded else 1
+        cand_p = pad_candidates(chunk, f_pad, shards=shards)
+        if shards > 1:
+            lo, hi = self.cand_slice(cand_p.shape[0])
+            cand_p = cand_p[lo:hi]
         cand_dev = torch.from_numpy(
             np.ascontiguousarray(cand_p, dtype=np.int32)).to(self.device)
         return self.store.encode_candidates(cand_dev, f_pad=f_pad)
 
-    def _dispatch_count(self, trans: dict, cands: dict):
-        """Dispatch the count of an encoded chunk over ``trans``; returns the
-        device counts and, on CUDA, an event recorded after them (every FIFO
-        entry carries one, so ``drain_ready`` never blocks on a CUDA entry)."""
+    def _dispatch_count(self, trans: dict, cands: dict, reduce: bool = True):
+        """Dispatch the count of an encoded chunk over ``trans`` and, with
+        ``reduce``, its collectives; returns the device counts and, on CUDA,
+        an event recorded after both (every FIFO entry carries one, so
+        ``drain_ready`` never blocks on a CUDA entry nor reads an unreduced
+        vector)."""
         dev = self._blocked_count(trans, cands)
+        if reduce:
+            dev = self.reduce_counts(dev)
         event = None
         if self.device.type == "cuda":
             event = torch.cuda.Event()
@@ -192,7 +339,7 @@ class MapReduceEngine:
     def _force_oldest(self) -> None:
         """Fetch the oldest outstanding chunk result to the host (blocking)."""
         pending, slot, dev, c, _ = self._queue.popleft()
-        counts = dev.cpu().numpy()
+        counts = fetch_global(dev)
         pending._parts[slot] = counts[:c].astype(np.int64)
 
     def drain_ready(self) -> int:
@@ -313,7 +460,8 @@ class MapReduceEngine:
         for slot, i in enumerate(starts):
             chunk = cand[i : i + self.cand_block]
             dev, event = self._dispatch_count(
-                trans, self._dispatch_encode(chunk, enc_block.f_pad))
+                trans, self._dispatch_encode(chunk, enc_block.f_pad,
+                                             sharded=False), reduce=False)
             self._queue.append((pending, slot, dev, chunk.shape[0], event))
             while len(self._queue) > self.inflight:
                 self._force_oldest()
@@ -336,12 +484,21 @@ class MapReduceEngine:
     def count_items_device(self, padded: np.ndarray, n_items: int) -> np.ndarray:
         """Device-side Job1: histogram of the (N, L) padded id matrix.  Rows
         hold *unique* sorted ids padded with ITEM_PAD, so presence counting
-        is a bincount; pads (and any id >= n_items) land in a dump slot."""
+        is a bincount; pads (and any id >= n_items) land in a dump slot.
+        On a mesh each rank bincounts its row block and the histograms are
+        summed over data, as every other counting job."""
         n = padded.shape[0]
         if n == 0 or n_items == 0:
             return np.zeros((n_items,), np.int64)
+        shards = self.n_data_shards
+        n_padded = -(-n // shards) * shards
+        if n_padded != n:
+            pad = np.full((n_padded - n, padded.shape[1]), ITEM_PAD, np.int32)
+            padded = np.concatenate([padded, pad])
+        lo, hi = self._row_block(n_padded)
         p = torch.from_numpy(
-            np.ascontiguousarray(padded, dtype=np.int32)).to(self.device)
+            np.ascontiguousarray(padded[lo:hi], dtype=np.int32)).to(self.device)
         ids = torch.clamp(p, max=n_items).reshape(-1).to(torch.int64)
         hist = torch.bincount(ids, minlength=n_items + 1)[:n_items]
-        return hist.cpu().numpy().astype(np.int64)
+        hist = self.all_reduce_data(hist.contiguous())
+        return fetch_global(hist).astype(np.int64)

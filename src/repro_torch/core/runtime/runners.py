@@ -22,11 +22,14 @@ counts.  Its mappers are plain Python: they hold no tensor and never touch
 the device, so a pool forked from a process that holds a CUDA context stays
 safe.
 
-``TorchRunner`` is the single-device counterpart of the JAX package's
-``JaxRunner``.  Given a ``ChunkedDatasetReader`` instead of transaction
-lists, it mines out of core: nothing is materialised, Job1 and every
-counting job stream the reader's chunks (``encode_block`` plus the engine's
-``count_block_async`` per chunk) and sum the per-chunk counts.
+``TorchRunner`` is the counterpart of the JAX package's ``JaxRunner``.
+Given a ``ChunkedDatasetReader`` instead of transaction lists, it mines out
+of core: nothing is materialised, Job1 and every counting job stream the
+reader's chunks (``encode_block`` plus the engine's ``count_block_async``
+per chunk) and sum the per-chunk counts.  ``ShardedRunner`` is the same
+runner over a ``DeviceMesh`` of ``torch.distributed`` ranks (one rank per
+device): transactions shard over ``data`` and, with ``cand_axes``, each
+wave's candidates over ``cand`` (see ``engine.py``).
 
 Fault tolerance (``fault_plan=`` / ``retry=``, see ``runtime/faults.py``):
 ``SimRunner`` recovers from task failures the way Hadoop does — every mapper
@@ -36,9 +39,9 @@ speculative backup copy whose first result wins.  ``TorchRunner`` consults
 the plan at job dispatch: ``process_exit`` kills the process whose rank it
 names, ``device_loss`` abandons the engine's outstanding work and raises
 ``DeviceLostError``, from which a new miner resumes at its level
-checkpoint.  Every runner is a context manager; ``close()`` is guaranteed
-even when a mapper raises mid-job (no leaked process pools).  The
-multi-device runner is not ported yet.
+checkpoint (on a mesh, the miner first rebuilds a smaller one).  Every
+runner is a context manager; ``close()`` is guaranteed even when a mapper
+raises mid-job (no leaked process pools).
 """
 
 from __future__ import annotations
@@ -648,8 +651,10 @@ class _TorchPending:
 
 
 class TorchRunner(BaseRunner):
-    """Single-device MapReduce runner on PyTorch (array-layout stores) —
-    the counterpart of the JAX package's ``JaxRunner``."""
+    """MapReduce runner on PyTorch (array-layout stores), on one device or,
+    given a ``mesh``, this rank's share of it — the counterpart of the JAX
+    package's ``JaxRunner``.  ``device=None`` is the mesh's device type,
+    else ``"cuda"``."""
 
     kind = "torch"
 
@@ -663,10 +668,13 @@ class TorchRunner(BaseRunner):
                  cand_block: int = 32_768, inflight: Optional[int] = 1,
                  encode_ahead: int = 2,
                  fault_plan: Optional[FaultPlan] = None,
-                 device="cuda") -> None:
+                 device=None, mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",),
+                 cand_axes: Tuple[str, ...] = ()) -> None:
         self.engine = MapReduceEngine(
             store=store, block_n=block_n, cand_block=cand_block,
-            inflight=inflight, encode_ahead=encode_ahead, device=device)
+            inflight=inflight, encode_ahead=encode_ahead, device=device,
+            mesh=mesh, data_axes=data_axes, cand_axes=cand_axes)
         self.fault_plan = fault_plan
         self._padded_raw: Optional[np.ndarray] = None
         self._n_raw = 0
@@ -675,11 +683,15 @@ class TorchRunner(BaseRunner):
         self._chunk_item_map: Optional[np.ndarray] = None
 
     def describe(self) -> str:
-        return f"{self.kind}/{self.engine.store_name}"
+        base = f"{self.kind}/{self.engine.store_name}"
+        if self.engine.cand_axes:
+            base += f"/c{self.engine.n_cand_shards}"
+        return base
 
     def config_signature(self) -> str:
-        # Block sizes and queue depths never change counts, so a resume may
-        # pick other ones; the store and the backend kind must match.
+        # Block sizes, queue depths and mesh geometry never change counts,
+        # so a resume (an elastic one on a shrunk mesh included) may pick
+        # other ones; the store and the backend kind must match.
         return f"{self.kind}/{self.engine.store_name}"
 
     def close(self, wait: bool = True) -> None:
@@ -804,16 +816,54 @@ class TorchRunner(BaseRunner):
                              chunks=len(parts))
 
 
+class ShardedRunner(TorchRunner):
+    """Mesh-parallel runner: transactions sharded over the data axis,
+    per-shard counts ``all_reduce``-d over it — the cluster path.
+
+    ``cand_axes`` switches the wave decomposition to the full 2-D grid: the
+    candidate rows of each wave shard over the ``cand`` axis instead of
+    replicating, so waves too big for one device fit (at
+    ``1/n_cand_shards`` per device); per-shard counts are summed along
+    ``data`` and gathered along ``cand``, identical to replication.  With
+    no mesh it builds one over the world (``launch/mesh.py``).
+    """
+
+    kind = "sharded"
+
+    def __init__(self, store: str = "perfect_hash", mesh=None,
+                 data_axes: Tuple[str, ...] = ("data",),
+                 cand_axes: Tuple[str, ...] = (), block_n: int = 2048,
+                 cand_block: int = 32_768, inflight: Optional[int] = 1,
+                 encode_ahead: int = 2,
+                 fault_plan: Optional[FaultPlan] = None,
+                 device=None) -> None:
+        if mesh is None:
+            from repro_torch.launch.mesh import (
+                make_data_cand_mesh, make_data_mesh)
+
+            build = make_data_cand_mesh if cand_axes else make_data_mesh
+            mesh = build(device="cuda" if device is None else device)
+        super().__init__(store=store, block_n=block_n, cand_block=cand_block,
+                         inflight=inflight, encode_ahead=encode_ahead,
+                         fault_plan=fault_plan, device=device, mesh=mesh,
+                         data_axes=data_axes, cand_axes=cand_axes)
+
+
 def make_runner(store: str = "perfect_hash", mesh=None,
+                data_axes: Tuple[str, ...] = ("data",),
                 cand_axes: Tuple[str, ...] = (), block_n: int = 2048,
                 cand_block: int = 32_768, inflight: Optional[int] = 1,
                 encode_ahead: int = 2,
                 fault_plan: Optional[FaultPlan] = None,
-                device="cuda") -> BaseRunner:
-    """Default runner selection for drivers.  Only the single-device runner
-    is ported; a mesh or candidate axes raise."""
+                device=None) -> BaseRunner:
+    """Default runner selection for drivers: a mesh or candidate axes mean
+    ``ShardedRunner``, else the single-device ``TorchRunner``."""
     if mesh is not None or cand_axes:
-        raise NotImplementedError("the multi-device runner is not yet ported")
+        return ShardedRunner(store=store, mesh=mesh, data_axes=data_axes,
+                             cand_axes=cand_axes, block_n=block_n,
+                             cand_block=cand_block, inflight=inflight,
+                             encode_ahead=encode_ahead, fault_plan=fault_plan,
+                             device=device)
     return TorchRunner(store=store, block_n=block_n, cand_block=cand_block,
                        inflight=inflight, encode_ahead=encode_ahead,
                        fault_plan=fault_plan, device=device)

@@ -72,6 +72,15 @@ class EncodedDB:
             self._packed = pack_bitmap(self.bitmap)
         return self._packed
 
+    def row_block(self, lo: int, hi: int) -> "EncodedDB":
+        """Rows ``[lo, hi)`` (a rank's transaction shard), views of the same
+        arrays, the cached packed view included."""
+        out = EncodedDB(padded=self.padded[lo:hi], bitmap=self.bitmap[lo:hi],
+                        n_items=self.n_items)
+        if self._packed is not None:
+            out._packed = self._packed[lo:hi]
+        return out
+
     def pad_transactions_to(self, n: int) -> "EncodedDB":
         """Pad N up to ``n`` with empty transactions (match nothing)."""
         if n == self.n_transactions:

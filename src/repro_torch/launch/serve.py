@@ -9,9 +9,11 @@ frequent-itemset queries every ``--query-every`` batches, reporting ingest
 throughput, query latency, and how many queries were served from the
 delta-maintained state without a refresh.  The flags, per-query lines and
 summary are those of the JAX package's ``repro.launch.serve``; ``--device``
-(default ``cuda``) picks where the service counts.  ``--mesh`` raises like
-``make_runner`` (the multi-device runner is not ported), and ``--lm`` is
-refused: the LM serving path is not ported.
+(default ``cuda``) picks where the service counts.  ``--mesh`` serves
+through ``ShardedRunner`` on the data mesh over every ``torch.distributed``
+rank (a one-rank group when the process has none), on the ``perfect_hash``
+store as in the reference; ``--lm`` is refused: the LM serving path is not
+ported.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--support", type=float, default=0.01)
     ap.add_argument("--store", default="perfect_hash")
     ap.add_argument("--mesh", action="store_true",
-                    help="sharded backend (not ported: raises)")
+                    help="sharded backend on the data mesh of every rank")
     ap.add_argument("--batch-size", type=int, default=256)
     ap.add_argument("--batches", type=int, default=20)
     ap.add_argument("--query-every", type=int, default=4)
@@ -62,9 +64,15 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
                     help="where the service counts (cuda or cpu)")
     args = ap.parse_args(argv)
 
+    mesh = None
+    if args.mesh:
+        from repro_torch.launch.mesh import make_data_mesh
+
+        mesh = make_data_mesh(device=args.device)
+
     svc = MiningService(
-        min_support=args.support, store=None if args.mesh else args.store,
-        mesh=True if args.mesh else None, n_slots=args.n_slots,
+        min_support=args.support, store=None if mesh else args.store,
+        mesh=mesh, n_slots=args.n_slots,
         slot_size=args.slot_size, staleness=args.staleness,
         max_k=args.max_k, device_loop=args.device_loop,
         trim=not args.no_trim, eviction=args.eviction,

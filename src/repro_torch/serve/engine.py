@@ -178,7 +178,11 @@ class MiningService:
     a certified error bound.
 
     ``device`` is where the runner built from ``store`` counts (the CUDA
-    card unless ``device="cpu"``); a ``runner=`` brings its own.  Requires
+    card unless ``device="cpu"``; with ``mesh=``, a ``DeviceMesh`` from
+    ``launch/mesh.py``, the mesh's device and a ``ShardedRunner``: the
+    window DB, Job1 and refresh waves shard over ``data`` while the delta
+    path stays un-sharded, as in the reference); a ``runner=`` brings its
+    own.  Requires
     an engine-backed runner: the resident window DB, the delta path and the
     ladder refresh all live on the engine.
     """
@@ -198,7 +202,7 @@ class MiningService:
         trim: bool = True,
         eviction: str = "slot",
         compact_churn: float = 4.0,
-        device="cuda",
+        device=None,
     ) -> None:
         if runner is not None and (store is not None or mesh is not None):
             raise ValueError(

@@ -20,9 +20,15 @@ kernel's launch counter.  Out of core, a ``.dat`` mined through
 device loss on the card at k = 3 abandons the engine's queue, and a fresh
 runner resumes from the level checkpoint with the clean answer; a parity
 cell holds the Hadoop model (``sim/trie``) to ``packed_bitmap`` on the card.
+Spawned ``torch.distributed`` worlds mine through ``ShardedRunner``: one
+NCCL rank, and two gloo ranks sharing the card on 1x2 and 2x1 meshes, each
+with the ``TorchRunner`` answer and the launches its shard asks for.
 """
 
+import json
 import math
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -42,6 +48,7 @@ from repro_torch.kernels.support_count import (  # noqa: E402
     launches, packed_support_count, packed_support_count_ref, pad_copies,
     support_count, support_count_ref,
 )
+from repro_torch.launch.multihost import launch_cluster  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -464,3 +471,74 @@ def test_parity_cell_sim_trie_vs_card(cuda):
     assert launches["packed_support_count"] > before
     assert cell.backends["sim/trie"]["n_frequent"] == \
         cell.backends["torch/packed_bitmap"]["n_frequent"]
+
+
+# -- the sharded runner over torch.distributed, on the card ---------------------
+
+_SHARDED_CHILD = r"""
+import json, math, sys
+import torch
+from repro_torch.distributed import ctx
+
+backend, n_data, n_cand, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]
+ctx.initialize_multihost(device="cuda", backend=backend, timeout=300)
+from repro_torch.core.miner import FrequentItemsetMiner
+from repro_torch.core.runtime import ShardedRunner, TorchRunner
+from repro_torch.data import get_dataset
+from repro_torch.kernels.support_count import launches, reset_launches
+from repro_torch.launch.mesh import make_data_cand_mesh, make_data_mesh
+
+db = get_dataset("T10I4D100K", scale=0.05, seed=0)  # 5,000 rows: 3 blocks
+mesh = (make_data_cand_mesh(n_data, n_cand) if n_cand
+        else make_data_mesh(n_data))
+rec = {}
+for store in ("packed_bitmap", "bitmap"):
+    reset_launches()
+    base = FrequentItemsetMiner(min_support=0.02, runner=TorchRunner(
+        store=store)).mine(db)
+    base_launches = dict(launches)
+    reset_launches()
+    runner = ShardedRunner(store=store, mesh=mesh,
+                           cand_axes=("cand",) if n_cand else ())
+    res = FrequentItemsetMiner(min_support=0.02, runner=runner).mine(db)
+    rec[store] = {"same": res.itemsets == base.itemsets,
+                  "n": len(res.itemsets), "base": base_launches,
+                  "sharded": dict(launches),
+                  "local_rows": runner.engine._local_enc.n_transactions,
+                  "collectives": runner.engine.collectives}
+with open(f"{out}.{ctx.process_index()}", "w") as f:
+    json.dump(rec, f)
+from repro_torch.launch.multihost import exit_rank
+exit_rank()
+"""
+
+
+@pytest.mark.parametrize("backend,n_data,n_cand", [
+    ("nccl", 1, 1), ("gloo", 1, 2), ("gloo", 2, 0)])
+def test_sharded_mine_on_card_matches_torch_runner(cuda, tmp_path, backend,
+                                                   n_data, n_cand):
+    """A spawned one-rank NCCL world (1x1 data x cand) and two gloo ranks
+    sharing this card (1x2 and 2x1) mine through ``ShardedRunner`` with the
+    ``TorchRunner`` answer; each rank launches its kernel once per row block
+    of its shard per candidate chunk: the single device's count on 1x1 and
+    1x2 (half of each chunk a launch), ceil(2,500 / 2,048) = 2 of its 3 row
+    blocks on 2x1."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = str(tmp_path / "rank")
+    world = n_data * max(1, n_cand)
+    launch_cluster([sys.executable, "-c", _SHARDED_CHILD, backend,
+                    str(n_data), str(n_cand), out], world, base_env=env,
+                   timeout=600)
+    for r in range(world):
+        recs = json.load(open(f"{out}.{r}"))
+        for store, kernel in KERNEL_STORES:
+            rec = recs[store]
+            assert rec["same"] and rec["n"] > 0
+            assert rec["collectives"] > 0
+            blocks = math.ceil(5000 / 2048)
+            local = math.ceil(rec["local_rows"] / 2048)
+            assert rec["local_rows"] == 5000 // n_data
+            want = rec["base"][kernel] // blocks * local
+            assert rec["sharded"] == {
+                k: (want if k == kernel else 0) for k in rec["sharded"]}

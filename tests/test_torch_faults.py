@@ -28,6 +28,7 @@ import repro_torch.core.runtime as t_rt  # noqa: E402
 from repro_torch.core.runtime import faults as t_faults  # noqa: E402
 from repro_torch.core.runtime.runners import TorchRunner  # noqa: E402
 from repro_torch.distributed import checkpoint as t_ckpt  # noqa: E402
+from test_torch_stores import cpu_mesh  # noqa: E402,F401
 
 MIN_SUPPORT = 0.05
 
@@ -357,7 +358,7 @@ def test_torch_resume_skips_job1_and_counts_from_the_loss(tmp_path, db,
     assert [p.k for p in res.levels] == [p.k for p in clean.levels]
 
 
-def test_device_loss_budget_and_make_runner(db):
+def test_device_loss_budget_and_make_runner(db, cpu_mesh):
     """More losses than the budget allows, or a budget of 0: the run dies
     loudly in both packages; ``make_runner`` takes the plan."""
     def program(p):
@@ -372,8 +373,14 @@ def test_device_loss_budget_and_make_runner(db):
     assert _same(program)
     plan = t_faults.FaultPlan(t_faults.device_loss(k=2))
     assert t_rt.make_runner(fault_plan=plan, device="cpu").fault_plan is plan
-    with pytest.raises(NotImplementedError):
-        t_rt.make_runner(cand_axes=("cand",), device="cpu")
+    # Candidate axes mean the sharded runner, on a data x cand mesh it
+    # builds over the world (one rank here), and it takes the plan too.
+    sharded = t_rt.make_runner(cand_axes=("cand",), device="cpu",
+                               fault_plan=plan)
+    assert isinstance(sharded, t_rt.ShardedRunner)
+    assert sharded.fault_plan is plan
+    assert sharded.describe() == "sharded/perfect_hash/c1"
+    assert sharded.engine.mesh.mesh_dim_names == ("data", "cand")
 
 
 # -- checkpoint config stamping ---------------------------------------------

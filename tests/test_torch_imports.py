@@ -41,7 +41,7 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.strip().split("|")
-    assert int(n_modules) >= 42  # every module: a dropped one shows
+    assert int(n_modules) >= 46  # every module: a dropped one shows
     assert bad == "", f"port pulled in: {bad}"
 
 
@@ -72,27 +72,51 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_default_device_is_cuda_and_never_falls_back():
+    """Every entry point defaults to the card and raises without one; the
+    mesh constructors, ``ShardedRunner`` and the multi-host init too (none
+    makes a CPU group unless asked for the CPU).  A CPU mesh is taken only
+    when asked for, and the sharded runner then counts on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
+    from repro_torch.core.runtime.runners import ShardedRunner
+    from repro_torch.distributed.ctx import MultihostSpec, initialize_multihost
+    from repro_torch.launch.mesh import make_data_cand_mesh, make_data_mesh
+
+    import torch.distributed as dist
+
     for build in (MapReduceEngine, TorchRunner, FrequentItemsetMiner,
-                  make_runner, lambda: MapReduceEngine(device="cuda")):
+                  make_runner, lambda: MapReduceEngine(device="cuda"),
+                  ShardedRunner, make_data_mesh, make_data_cand_mesh,
+                  lambda: make_runner(cand_axes=("cand",)),
+                  lambda: initialize_multihost(
+                      MultihostSpec("127.0.0.1:1", 1, 0))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
+        assert not dist.is_initialized()
     assert MapReduceEngine(device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError):
-        make_runner(mesh=object(), device="cpu")
+    mesh = make_data_mesh(device="cpu")
+    try:
+        runner = make_runner(mesh=mesh)
+        assert isinstance(runner, ShardedRunner)
+        assert runner.engine.device.type == "cpu"
+        with pytest.raises(ValueError, match="disagrees"):
+            make_runner(mesh=mesh, device="cuda")
+    finally:
+        dist.destroy_process_group()
 
 
 # Reference names a port module may lack, each with its reason.
 _UNPORTED = {
     "JaxRunner": "the device runner is ported as TorchRunner",
-    "ShardedRunner": "the multi-device mesh runner is not ported",
-    "fetch_global": "multi-host gather: the mesh is not ported",
-    "MultihostSpec": "multi-host launch is not ported",
-    "initialize_multihost": "multi-host launch is not ported",
-    "multihost_env": "multi-host launch is not ported",
-    "process_count": "multi-host launch is not ported",
-    "process_index": "multi-host launch is not ported (faults.process_rank)",
+    "compat_make_mesh": "jax.make_mesh across jax versions: the port builds "
+                        "torch DeviceMeshes (launch/mesh.py)",
+    "make_production_mesh": "the LM's meshes are not ported",
+    "make_host_mesh": "the LM's meshes are not ported",
+    "use_sharding": "activation sharding of the LM is not ported",
+    "constrain": "activation sharding of the LM is not ported",
+    "elastic_mesh": "the LM's elastic mesh is not ported",
+    "resume": "the LM's elastic restore is not ported",
+    "mk_shardings": "the LM's parameter shardings are not ported",
     "ShardingRules": "mesh sharding rules of the LM are not ported",
     "default_rules": "mesh sharding rules of the LM are not ported",
     "act_pspec": "mesh sharding rules of the LM are not ported",

@@ -16,10 +16,11 @@ torch = pytest.importorskip("torch")
 from repro.core.miner import FrequentItemsetMiner as JMiner  # noqa: E402
 from repro.data import get_dataset as j_get_dataset  # noqa: E402
 from test_store_properties import EDGE_DBS, _random_db  # noqa: E402
-from test_torch_stores import one_torch_thread  # noqa: E402,F401
+from test_torch_stores import cpu_mesh, one_torch_thread  # noqa: E402,F401
 
 from repro_torch.core.miner import FrequentItemsetMiner as TMiner  # noqa: E402
 from repro_torch.core.runtime import strategies  # noqa: E402
+from repro_torch.core.runtime.engine import MapReduceEngine  # noqa: E402
 from repro_torch.core.runtime.job import CountJob, JobProfile  # noqa: E402
 from repro_torch.core.runtime.runners import make_runner  # noqa: E402
 from repro_torch.core.stores import ARRAY_STORES  # noqa: E402
@@ -156,11 +157,28 @@ def test_job_profile_fields_match_reference():
     assert CountJob(k=2, cand=np.zeros((0, 2), np.int32)).n_candidates == 0
 
 
-def test_unported_options_raise():
-    for kwargs in ({"mesh": object()}, {"cand_axes": ("cand",)},
-                   {"data_axes": ("data", "model")}):
-        with pytest.raises(NotImplementedError):
-            TMiner(device="cpu", **kwargs)
+def test_unported_options_raise(cpu_mesh):
+    """Every option of the JAX miner is ported: ``mesh``, ``cand_axes`` and
+    ``data_axes`` mine through ``ShardedRunner`` (here a one-rank CPU mesh;
+    the multi-rank worlds are in ``test_torch_sharded*.py``), and an axis
+    the mesh lacks fails at construction, as in the JAX package."""
+    from repro_torch.launch.mesh import make_data_cand_mesh
+
+    db, support, want = _reference("packed_bitmap", "T10I4D100K")
+    for kwargs in ({"mesh": cpu_mesh},
+                   {"mesh": make_data_cand_mesh(device="cpu"),
+                    "cand_axes": ("cand",)},
+                   {"mesh": cpu_mesh, "data_axes": ("data",)}):
+        miner = TMiner(min_support=support, store="packed_bitmap", **kwargs)
+        got = miner.mine(db)
+        assert miner.active_runner.describe().startswith(
+            "sharded/packed_bitmap")
+        assert got.itemsets == want.itemsets
+        assert _levels(got) == _levels(want)
+    with pytest.raises(ValueError, match="missing"):
+        TMiner(mesh=cpu_mesh, data_axes=("data", "model")).mine([[0, 1]])
+    with pytest.raises(ValueError, match="cand_axes"):
+        MapReduceEngine(cand_axes=("cand",), device="cpu")
     # Caller-supplied runners and level checkpoints are ported; a runner
     # owns its backend config, as in the JAX package.
     runner = make_runner(store="bitmap", device="cpu")

@@ -53,7 +53,7 @@ from repro.core.stores import pad_candidates as j_pad_candidates  # noqa: E402
 from repro.core.stores.base import tracked_keep_mask as j_tracked_keep_mask  # noqa: E402
 from repro.launch import serve as j_cli  # noqa: E402
 from repro.serve import MiningService as JService  # noqa: E402
-from test_torch_stores import one_torch_thread  # noqa: E402,F401
+from test_torch_stores import cpu_mesh, one_torch_thread  # noqa: E402,F401
 
 from repro_torch.core.stores import (  # noqa: E402
     ARRAY_STORES, encoded_db_from_numpy, pad_candidates, tracked_keep_mask)
@@ -427,20 +427,42 @@ def test_cli_columns_match_reference(monkeypatch):
     assert "queries delta-served" in got.getvalue().splitlines()[-1]
 
 
-def test_cli_refuses_unported_paths():
+def test_cli_refuses_unported_paths(monkeypatch):
+    """``--lm`` stays refused (the LM is not ported); ``--mesh`` serves
+    through ``ShardedRunner`` on the data mesh (a one-rank gloo group
+    here) with the reference CLI's per-query columns."""
+    import torch.distributed as dist
+
     with pytest.raises(SystemExit, match="queue item 10"):
         t_cli.main(["--lm", "--arch", "x"])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        t_cli.main(["--mesh", "--device", "cpu"])
+    args = CLI_ARGS + ["--mesh"]
+    monkeypatch.setattr(sys, "argv", ["repro.launch.serve"] + args)
+    want = io.StringIO()
+    with contextlib.redirect_stdout(want):
+        j_cli.main()
+    got = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(got):
+            t_cli.main(args + ["--device", "cpu"])
+    finally:
+        dist.destroy_process_group()
+    assert got.getvalue().startswith("mining service: sharded/perfect_hash")
+    assert len(_columns(want.getvalue())) == 4
+    assert _columns(got.getvalue()) == _columns(want.getvalue())
 
 
-def test_service_defaults_to_the_card_and_refuses_unported_backends():
+def test_service_defaults_to_the_card_and_refuses_unported_backends(
+        cpu_mesh):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is usable")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MiningService()
-    with pytest.raises(NotImplementedError):
-        MiningService(mesh=object(), device="cpu")
+    # A mesh is ported: the service counts on the mesh's device.
+    svc = MiningService(mesh=cpu_mesh)
+    assert svc.runner.describe() == "sharded/perfect_hash"
+    assert svc.runner.engine.device.type == "cpu"
+    with pytest.raises(ValueError, match="not both"):
+        MiningService(runner=svc.runner, mesh=cpu_mesh)
     with pytest.raises(ValueError, match="not both"):
         MiningService(runner=MiningService(device="cpu").runner,
                       store="perfect_hash")

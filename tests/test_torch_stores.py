@@ -52,6 +52,20 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture
+def cpu_mesh():
+    """A one-rank gloo process group on a free local port and its 1-D
+    ``data`` mesh (``make_data_mesh`` makes the group when the process has
+    none), torn down after the test so no group outlives it."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_data_mesh
+
+    mesh = make_data_mesh(device="cpu")
+    yield mesh
+    dist.destroy_process_group()
+
+
 def _switch(monkeypatch, store, use_kernel):
     """Set a kernel store's switch (None is its default)."""
     cls = ARRAY_STORES[store]
