@@ -108,7 +108,26 @@ result line) when it fails:
    clean run's counting jobs).  Every answer must equal phase 4's
    ``perfect_hash`` SPC mine, and each rank's kernel launches what its
    waves ask for (its row blocks x candidate chunks) or its ladder levels
-   (its rows).
+   (its rows);
+9. the dense LM and frequent token-set mining over its stream: (a)
+   qwen2-1.5b at its full published config, random bfloat16 weights from a
+   seeded ``torch.Generator``: ``ServeEngine.generate`` with batch 4, a
+   128-token prompt, 32 greedy tokens, max_len 256, twice (identical
+   tokens, every logit finite), with prefill ms, decode ms a token, tok/s
+   and peak memory; then in float32 (TF32 off) prefill(128) + decode(token
+   128) against a full forward over 129 tokens, relative max error < 1e-3
+   for every layer (teacher-forced) and for the logits through the first 3
+   layers (the reference's reduced depth; through all 28 the random stack
+   is chaotic, and that error is printed only);
+   (b) gemma2-2b at full width, 4 of its 26 layers (two local, two
+   global): batch 1, a 6,144-token prompt, 16 greedy tokens, max_len
+   6,160, so the 4,096 window masks real positions, and the same float32
+   check; (c) ``TokenSetMiner(min_support=0.01, window=32, max_k=4)`` over
+   steps 0-3 of ``SyntheticLM(151,936, batch=256, seq_len=4096, seed=0)``
+   (131,072 windows) through ``bitmap`` and ``packed_bitmap``, each equal to
+   the ``perfect_hash`` mine (itemsets AND supports), each kernel's
+   launches equal to row blocks x candidate chunks of every level
+   (``token_miner`` in the ``kernels`` line).
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -1825,6 +1844,303 @@ def sharded_phase(workloads, bases, mines, scale=1.0, serve=None):
     return out, by_path
 
 
+# -- phase 9: the dense LM and token-set mining over its stream ----------------
+
+class LogitLog:
+    """While active, ANDs ``isfinite`` of every logit the model API returns
+    (on the device, no sync) and counts the calls."""
+
+    def __enter__(self):
+        from repro_torch.models import model as M
+
+        self._m, self._saved = M, (M.prefill, M.decode_step)
+        self.calls, self.finite = 0, None
+        M.prefill, M.decode_step = map(self._logged, self._saved)
+        return self
+
+    def _logged(self, fn):
+        import torch
+
+        def logged(*args, **kwargs):
+            logits, cache = fn(*args, **kwargs)
+            ok = torch.isfinite(logits).all()
+            self.finite = ok if self.finite is None else self.finite & ok
+            self.calls += 1
+            return logits, cache
+        return logged
+
+    def __exit__(self, *exc):
+        self._m.prefill, self._m.decode_step = self._saved
+
+
+def events_ms(fn) -> float:
+    """Device-clock ms of one call of ``fn`` (which ends in a host fetch)."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def lm_serve(name, cfg, batch, prompt_len, new_tokens, max_len, reps=5):
+    """``ServeEngine.generate`` in bfloat16 on the card, greedy: every
+    run's tokens must agree and every logit be finite.  Times are medians
+    (with min and max) of ``reps`` runs each: the one-token ``generate``
+    (prefill, the cache's allocation and the fetch to the host) and the
+    full one; decode ms a token is the difference over the other tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize, tree_leaves
+    from repro_torch.serve import ServeEngine
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         M.abstract_params(cfg))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()  # serving's peak, not the init's
+    param_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    engine = ServeEngine(cfg, params, max_len=max_len, device="cuda")
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, prompt_len), dtype=np.int32)
+    engine.generate(prompts, 2)  # warm-up: library handles, allocator
+    with LogitLog() as log:
+        first = engine.generate(prompts, new_tokens)
+        finite = bool(log.finite)
+    outs = []
+    fulls = sorted(events_ms(lambda: outs.append(
+        engine.generate(prompts, new_tokens))) for _ in range(reps))
+    ones = sorted(events_ms(lambda: engine.generate(prompts, 1))
+                  for _ in range(reps))
+    full_ms, prefill_ms = fulls[reps // 2], ones[reps // 2]
+    peak = torch.cuda.max_memory_allocated()
+    rec = {"arch": name, "n_layers": cfg.n_layers, "batch": batch,
+           "prompt": prompt_len, "new_tokens": new_tokens, "max_len": max_len,
+           "param_bytes": param_bytes, "init_s": init_s, "reps": reps,
+           "one_token_generate_ms": prefill_ms, "one_token_generate_ms_all": ones,
+           "generate_ms": full_ms, "generate_ms_all": fulls,
+           "decode_ms_per_token": (full_ms - prefill_ms) / (new_tokens - 1),
+           "tok_s": batch * new_tokens / (full_ms / 1e3),
+           "peak_bytes": peak, "logit_calls": log.calls,
+           "first_row": first[0, :8].tolist()}
+    print(f"lm {name} ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab_size}) bf16: {param_bytes / 1e9:.3f} GB of parameters "
+          f"(init {init_s:.2f} s); batch {batch}, prompt {prompt_len}, "
+          f"{new_tokens} new tokens, median of {reps} (min-max): one-token "
+          f"generate {prefill_ms:.2f} ms ({ones[0]:.2f}-{ones[-1]:.2f}), full "
+          f"generate {full_ms:.2f} ms ({fulls[0]:.2f}-{fulls[-1]:.2f}), decode "
+          f"{rec['decode_ms_per_token']:.3f} ms a token, {rec['tok_s']:.1f} "
+          f"tok/s, peak memory {peak / 1e9:.3f} GB; first row "
+          f"{rec['first_row']}")
+    if first.shape != (batch, new_tokens) or not all(
+            np.array_equal(first, o) for o in outs):
+        raise AssertionError(f"lm {name}: greedy runs differ")
+    if not finite or log.calls != new_tokens:
+        raise AssertionError(f"lm {name}: non-finite logits ({log.calls} "
+                             "logit calls)")
+    del engine, params
+    return rec
+
+
+def scale_attention(params, cfg):
+    """Rescale every layer's attention weights in place to std
+    1/sqrt(true fan-in): d_model for wq/wk/wv, n_heads * head_dim for wo.
+    The reference's rule (``fan_in = shape[-2]``) gives wq std
+    1/sqrt(n_heads), so the softmaxes are near one-hot and a deep random
+    stack amplifies rounding; rescaled, it does not."""
+    import math
+
+    d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    factors = {"wq": math.sqrt(h / d), "wk": math.sqrt(kv / d),
+               "wv": math.sqrt(kv / d), "wo": 1 / math.sqrt(h)}
+    for lp in params["blocks"].values():
+        for key, f in factors.items():
+            lp["attn"][key].mul_(f)
+
+
+def lm_consistency(name, cfg, batch, s, max_len, e2e_layers):
+    """float32 (TF32 off) at full width, the reference's
+    ``tests/test_archs.py`` check that prefill(S) + decode(token S) equals a
+    full forward over S + 1 tokens:
+
+    - every layer, teacher-forced: the layer's prefill over the forward's
+      own input at positions [0, S), then its decode step at S, against its
+      full-sequence output at S; relative max error < 1e-3;
+    - the logits end to end through the first ``e2e_layers`` layers (the
+      reference's reduced depth): < 1e-3;
+    - the logits end to end through every layer: printed, not held.  With
+      the reference's random init the stack is chaotic (the reference's own
+      check exceeds 1e-3 at 16 layers of width 256 on the CPU:
+      ``tests/test_torch_lm.py``), so summation-order differences grow
+      with depth;
+    - the logits end to end through every layer once the attention weights
+      are rescaled to std 1/sqrt(true fan-in) (``scale_attention``): < 1e-3.
+      That stack is not chaotic, so this holds the cache and position
+      plumbing across the full depth."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the float32 check")
+    t0 = time.perf_counter()
+    params = materialize(torch.Generator(device=dev).manual_seed(1),
+                         M.abstract_params(cfg), dtype_override=torch.float32)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (batch, s + 1), dtype=np.int32)).to(dev)
+
+    def rel(got, want):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"lm {name}: non-finite values")
+        return float((got - want).abs().max() / want.abs().max())
+
+    def end_to_end(c):
+        cache = materialize(None, M.abstract_cache(c, batch, max_len),
+                            dtype_override=torch.float32, device=dev)
+        _, cache = M.prefill(params, {"tokens": toks[:, :s]}, c, cache)
+        got, _ = M.decode_step(params, toks[:, s:], cache, s + 1, c)
+        del cache
+        x, _ = M.forward(params, {"tokens": toks}, c)
+        return rel(got, M._logits(params, L.rmsnorm(params["final_norm"],
+                                                    x[:, -1:]), c)[:, 0])
+
+    with torch.inference_mode():
+        x = M._embed_in(params, {"tokens": toks}, cfg)
+        pos = torch.arange(s + 1, device=dev).expand(batch, s + 1)
+        layer_rel = []
+        for i, (t, c) in enumerate(B.layer_kinds(cfg)):
+            lp = params["blocks"][str(i)]
+            y, _ = B.layer_apply(lp, x, t, c, cfg, positions=pos)
+            cache = materialize(None, B.cache_abstract(cfg, t, batch, max_len),
+                                dtype_override=torch.float32, device=dev)
+            _, cache = B.layer_prefill(lp, x[:, :s], t, c, cfg,
+                                       positions=pos[:, :s], cache=cache)
+            yd, _ = B.layer_decode(lp, x[:, s:], t, c, cfg, cache=cache,
+                                   cache_len=s + 1, positions=pos[:, s:])
+            layer_rel.append(rel(yd, y[:, s:]))
+            x = y
+        del x, y, cache
+        e2e = end_to_end(dataclasses.replace(cfg, n_layers=e2e_layers))
+        full = end_to_end(cfg) if e2e_layers < cfg.n_layers else e2e
+        scale_attention(params, cfg)
+        scaled = end_to_end(cfg)
+    wall = time.perf_counter() - t0
+    rec = {"layers_max_rel": max(layer_rel), "layer_rel": layer_rel,
+           "e2e_layers": e2e_layers, "e2e_rel": e2e, "full_depth_rel": full,
+           "scaled_full_depth_rel": scaled, "wall_s": wall}
+    deep = (f"; through all {cfg.n_layers} layers {full:.3e} (not held: "
+            "chaotic random stack)" if e2e_layers < cfg.n_layers else "")
+    print(f"lm {name} f32: prefill({s}) + decode vs forward({s + 1}), batch "
+          f"{batch}: every layer (teacher-forced) max relative error "
+          f"{rec['layers_max_rel']:.3e}, logits through {e2e_layers} layers "
+          f"{e2e:.3e}{deep}; through all {cfg.n_layers} layers with the "
+          f"attention rescaled {scaled:.3e} (held < 1e-3: every layer, "
+          f"{e2e_layers} layers, rescaled {cfg.n_layers}) in {wall:.2f} s")
+    if not (rec["layers_max_rel"] < 1e-3 and e2e < 1e-3 and scaled < 1e-3):
+        raise AssertionError(f"lm {name}: prefill + decode != forward {rec}")
+    del params
+    return rec
+
+
+def token_miner_phase(support=0.01, steps=4, batch=256, seq_len=4096):
+    """``TokenSetMiner`` on the card over qwen2-1.5b's vocabulary: every
+    kernel store's mine equals the ``perfect_hash`` mine, and each kernel
+    launches row blocks x candidate chunks of every level (SPC: one wave
+    a level, its size the level's ``JobProfile.n_candidates``)."""
+    from repro_torch.analytics import TokenSetMiner
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.kernels.support_count import (
+        launches, pad_copies, reset_launches)
+
+    pipe = SyntheticLM(151_936, batch=batch, seq_len=seq_len, seed=0)
+    counts = {k: 0 for k in launches}
+    recs, base = [], None
+    for store in ("perfect_hash", "bitmap", "packed_bitmap"):
+        miner = TokenSetMiner(min_support=support, store=store, window=32,
+                              max_k=4, device="cuda")
+        with WaveLog() as waves:
+            reset_launches()
+            t0 = time.perf_counter()
+            res = miner.mine_steps(pipe, range(steps))
+            wall = time.perf_counter() - t0
+            got = dict(launches)
+        if pad_copies["support_count"]:
+            raise AssertionError(f"token miner {store}: pad copies")
+        sizes = [p.n_candidates for p in res.levels[1:]]
+        if waves.sizes != sizes:
+            raise AssertionError(f"token miner {store}: waves {waves.sizes} "
+                                 f"!= JobProfile candidates {sizes}")
+        blocks = math.ceil(res.n_transactions / BLOCK_N)
+        expected = blocks * sum(math.ceil(c / CAND_BLOCK) for c in sizes)
+        want = {k: (expected if k == KERNEL_OF.get(store) else 0) for k in got}
+        n_items = res.levels[0].n_frequent
+        print(f"token miner {store}: N={res.n_transactions} F={n_items} "
+              f"F_pad={(n_items // 128 + 1) * 128} min_count={res.min_count} "
+              f"{len(res.itemsets)} itemsets (max k {res.max_k}), wall "
+              f"{wall:.3f} s, launches {got} (expected {want})")
+        for p in res.levels:
+            print(f"  level k={p.k} candidates={p.n_candidates} "
+                  f"frequent={p.n_frequent} seconds={p.seconds:.4f} "
+                  f"gen={p.gen_seconds:.4f} encode={p.encode_seconds:.4f} "
+                  f"count={p.count_seconds:.4f}")
+        if got != want:
+            raise AssertionError(f"token miner {store}: launches {got} != {want}")
+        if base is None:
+            base = res.itemsets
+            if res.max_k < 3:
+                raise AssertionError("token miner: fewer than 3 levels")
+        elif res.itemsets != base:
+            raise AssertionError(f"token miner {store}: itemsets/supports "
+                                 "differ from the perfect_hash mine")
+        for k in got:
+            counts[k] += got[k]
+        recs.append({"store": store, "wall_s": wall, "launches": got,
+                     "n_transactions": res.n_transactions, "f": n_items,
+                     "n_itemsets": len(res.itemsets),
+                     "levels": [[p.k, p.n_candidates, p.n_frequent, p.seconds,
+                                 p.gen_seconds, p.encode_seconds,
+                                 p.count_seconds] for p in res.levels]})
+    for k, n in counts.items():
+        if n <= 0:
+            raise AssertionError(f"{k} never launched on the token_miner path")
+    print(f"agree token miner: {len(base)} itemsets, identical supports "
+          "through perfect_hash, bitmap and packed_bitmap")
+    return recs, counts
+
+
+def lm_phase():
+    """Phase 9: (a) qwen2-1.5b at full width, (b) gemma2-2b at full width
+    on 4 layers, (c) the token-set miner over the LM stream."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    qwen = get_config("qwen2-1.5b")
+    gemma = dataclasses.replace(get_config("gemma2-2b"), n_layers=4)
+    out = {"serve": [lm_serve("qwen2-1.5b", qwen, 4, 128, 32, 256)]}
+    out["qwen_f32"] = lm_consistency("qwen2-1.5b", qwen, 4, 128, 256, 3)
+    out["serve"].append(lm_serve("gemma2-2b", gemma, 1, 6144, 16, 6160))
+    out["gemma_f32"] = lm_consistency("gemma2-2b", gemma, 1, 6144, 6160, 4)
+    out["token_miner"], counts = token_miner_phase()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 9: {out['wall_s']:.1f} s")
+    return out, {"token_miner": counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -1911,6 +2227,10 @@ def main() -> int:
     # launches counted in its own process.
     sharded, sharded_paths = sharded_phase(workloads, bases, mines)
     by_path.update(sharded_paths)
+    # Phase 9: the dense LM on the card and token-set mining over its
+    # stream through both kernels.
+    lm, lm_paths = lm_phase()
+    by_path.update(lm_paths)
     # Host phases of the T10I4D100K mine that no JobProfile row holds: the
     # ingest pass and the speculative C3 generated while C2 counts.
     from repro_torch.core.itemsets import apriori_gen_matrix
@@ -1939,7 +2259,7 @@ def main() -> int:
                        "mines": mines, "host": host,
                        "out_of_core": {"mines": ooc_mines, "host": ooc_host},
                        "serve": {"runs": serve_runs, "cli_s": cli_s},
-                       "hadoop": hadoop, "sharded": sharded,
+                       "hadoop": hadoop, "sharded": sharded, "lm": lm,
                        "device": device,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -12,24 +12,79 @@ summary are those of the JAX package's ``repro.launch.serve``; ``--device``
 (default ``cuda``) picks where the service counts.  ``--mesh`` serves
 through ``ShardedRunner`` on the data mesh over every ``torch.distributed``
 rank (a one-rank group when the process has none), on the ``perfect_hash``
-store as in the reference; ``--lm`` is refused: the LM serving path is not
-ported.
+store as in the reference.
+
+The LM path (batched generation with the ``ServeEngine``) is kept behind
+``--lm`` and, as in the reference, gated on ``REPRO_LM=1``:
+
+  REPRO_LM=1 python -m repro_torch.launch.serve --lm --arch qwen2-1.5b
+
+On the card it serves the architecture's full config; with ``--device
+cpu`` its reduced one.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 
 
+def _lm_main(argv) -> None:
+    if os.environ.get("REPRO_LM") != "1":
+        print("the LM serving path is out of scope for the mining repro; "
+              "set REPRO_LM=1 to run it anyway")
+        sys.exit(0)
+
+    import torch
+
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.core.runtime.engine import resolve_device
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize
+    from repro_torch.serve import ServeEngine
+
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve --lm")
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the full config) or cpu (the reduced one)")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch) if dev.type == "cuda" else get_reduced(args.arch)
+    if cfg.encoder_only:
+        raise SystemExit(f"{args.arch} is encoder-only: no decode path")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = materialize(gen, M.abstract_params(cfg))
+    engine = ServeEngine(cfg, params, max_len=args.max_len, device=dev)
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
+                           dtype=np.int32)
+
+    t0 = time.time()
+    out = engine.generate(prompts, max_new_tokens=args.new_tokens,
+                          temperature=args.temperature, rng=gen)
+    dt = time.time() - t0
+    print(f"generated {out.shape} in {dt:.2f}s "
+          f"({args.batch * out.shape[1] / dt:.1f} tok/s)")
+    print("first row:", out[0, :16].tolist())
+
+
 def main(argv: Optional[Sequence[str]] = None) -> None:
     argv = list(sys.argv[1:] if argv is None else argv)
     if "--lm" in argv:
-        raise SystemExit("--lm: the LM serving path is not ported to "
-                         "repro_torch (ROADMAP queue item 10)")
+        _lm_main([a for a in argv if a != "--lm"])
+        return
 
     from repro_torch.data.stream import basket_stream
     from repro_torch.serve import MiningService

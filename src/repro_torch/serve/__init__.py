@@ -1,9 +1,9 @@
 """Serving layer: the streaming frequent-itemset ``MiningService``
 (PyTorch port of the JAX package's ``serve``).
 
-The JAX package also resolves ``ServeEngine``, the LM decode engine, from
-its model stack; the LM scaffolding is not ported, so asking for it here
-raises ``AttributeError``.
+``ServeEngine``, the LM decode engine, lives in ``repro_torch.serve.lm``
+and is imported lazily, as in the reference, so the mining path never pulls
+in the model stack.
 """
 
 from repro_torch.serve.engine import (
@@ -13,12 +13,13 @@ from repro_torch.serve.engine import (
     ServeResult,
 )
 
-__all__ = ["MiningService", "ServeResult", "IngestReport", "ErrorCertificate"]
+__all__ = ["MiningService", "ServeResult", "IngestReport",
+           "ErrorCertificate", "ServeEngine"]
 
 
 def __getattr__(name):
     if name == "ServeEngine":
-        raise AttributeError(
-            "ServeEngine belongs to the LM scaffolding, which repro_torch has "
-            "not ported yet (ROADMAP queue item 10)")
+        from repro_torch.serve.lm import ServeEngine
+
+        return ServeEngine
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -542,3 +542,74 @@ def test_sharded_mine_on_card_matches_torch_runner(cuda, tmp_path, backend,
             want = rec["base"][kernel] // blocks * local
             assert rec["sharded"] == {
                 k: (want if k == kernel else 0) for k in rec["sharded"]}
+
+
+# -- the LM and the token-set miner --------------------------------------------
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-2b"])
+def test_serve_engine_on_card_matches_cpu(cuda, arch):
+    """A reduced-width ``ServeEngine`` on the card: float32 greedy tokens
+    equal the CPU engine's (TF32 off), prefill + decode equal the full
+    forward within 1e-3, and bfloat16 logits are finite and deterministic."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import layers as TL
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import materialize, tree_map
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_reduced(arch)
+    params = materialize(torch.Generator().manual_seed(0),
+                         TM.abstract_params(cfg), dtype_override=torch.float32)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 8)).astype(np.int32)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = ServeEngine(cfg, params, max_len=32, device="cpu").generate(
+            prompts, 16)
+        eng = ServeEngine(cfg, params, max_len=32, device=cuda)
+        assert eng.params["embed"]["table"].is_cuda
+        np.testing.assert_array_equal(eng.generate(prompts, 16), want)
+        p = tree_map(lambda x: x.to(cuda), params)
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 33)).astype(np.int32)).to(cuda)
+        cache = materialize(None, TM.abstract_cache(cfg, 2, 64),
+                            dtype_override=torch.float32, device=cuda)
+        _, cache = TM.prefill(p, {"tokens": toks[:, :32]}, cfg, cache)
+        ld, _ = TM.decode_step(p, toks[:, 32:], cache, 33, cfg)
+        x, _ = TM.forward(p, {"tokens": toks}, cfg)
+        ref = TM._logits(p, TL.rmsnorm(p["final_norm"], x[:, -1:]), cfg)[:, 0]
+        assert float((ld - ref).abs().max() / ref.abs().max()) < 1e-3
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    bf16 = materialize(torch.Generator(device=cuda).manual_seed(0),
+                       TM.abstract_params(cfg))
+    eng = ServeEngine(cfg, bf16, max_len=32, device=cuda)
+    runs = [eng.generate(prompts, 8) for _ in range(2)]
+    np.testing.assert_array_equal(runs[0], runs[1])
+    cache = materialize(None, TM.abstract_cache(cfg, 2, 32), device=cuda)
+    logits, _ = TM.prefill(eng.params, {"tokens": torch.from_numpy(
+        prompts).to(cuda)}, cfg, cache)
+    assert logits.dtype == torch.float32 and bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("store,kernel", KERNEL_STORES)
+def test_token_set_miner_on_card(cuda, store, kernel):
+    """``TokenSetMiner`` on the card through a kernel store equals the CPU
+    ``perfect_hash`` mine, and its kernel launches once per row block and
+    candidate chunk of every level (SPC: one wave per level)."""
+    from repro_torch.analytics import TokenSetMiner
+    from repro_torch.data.pipeline import SyntheticLM
+
+    pipe = SyntheticLM(512, 8, 256, seed=0)
+    want = TokenSetMiner(min_support=0.05, store="perfect_hash", window=32,
+                         device="cpu").mine_steps(pipe, [0, 1])
+    before = dict(launches)
+    got = TokenSetMiner(min_support=0.05, store=store, window=32).mine_steps(
+        pipe, [0, 1])
+    assert got.itemsets == want.itemsets and got.max_k == 4
+    blocks = math.ceil(got.n_transactions / 2048)
+    expected = blocks * sum(math.ceil(p.n_candidates / 32_768)
+                            for p in got.levels[1:])
+    assert {k: launches[k] - before[k] for k in launches} == {
+        k: (expected if k == kernel else 0) for k in launches}

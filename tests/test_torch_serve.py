@@ -428,13 +428,20 @@ def test_cli_columns_match_reference(monkeypatch):
 
 
 def test_cli_refuses_unported_paths(monkeypatch):
-    """``--lm`` stays refused (the LM is not ported); ``--mesh`` serves
-    through ``ShardedRunner`` on the data mesh (a one-rank gloo group
-    here) with the reference CLI's per-query columns."""
+    """``--lm`` is gated on ``REPRO_LM=1`` as in the reference, and refuses
+    an architecture whose mixer is not ported; ``--mesh`` serves through
+    ``ShardedRunner`` on the data mesh (a one-rank gloo group here) with
+    the reference CLI's per-query columns."""
     import torch.distributed as dist
 
-    with pytest.raises(SystemExit, match="queue item 10"):
+    monkeypatch.delenv("REPRO_LM", raising=False)
+    with pytest.raises(SystemExit) as gated:
         t_cli.main(["--lm", "--arch", "x"])
+    assert gated.value.code == 0
+    monkeypatch.setenv("REPRO_LM", "1")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        t_cli.main(["--lm", "--arch", "mamba2-2.7b", "--device", "cpu"])
+    monkeypatch.delenv("REPRO_LM")
     args = CLI_ARGS + ["--mesh"]
     monkeypatch.setattr(sys, "argv", ["repro.launch.serve"] + args)
     want = io.StringIO()
@@ -470,6 +477,12 @@ def test_service_defaults_to_the_card_and_refuses_unported_backends(
         MiningService(runner=object.__new__(type(
             "NoEngine", (), {"describe": lambda self: "none"})))
     import repro_torch.serve as serve
+    from repro_torch.serve.lm import ServeEngine
 
-    with pytest.raises(AttributeError, match="not ported"):
-        serve.ServeEngine
+    # The LM engine resolves lazily, as in the reference; its sharding is
+    # not ported.
+    assert serve.ServeEngine is ServeEngine
+    with pytest.raises(NotImplementedError, match="not ported"):
+        serve.ServeEngine(None, {}, mesh=cpu_mesh)
+    with pytest.raises(AttributeError):
+        serve.NoSuchEngine
