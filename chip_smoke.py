@@ -127,7 +127,26 @@ result line) when it fails:
    (131,072 windows) through ``bitmap`` and ``packed_bitmap``, each equal to
    the ``perfect_hash`` mine (itemsets AND supports), each kernel's
    launches equal to row blocks x candidate chunks of every level
-   (``token_miner`` in the ``kernels`` line).
+   (``token_miner`` in the ``kernels`` line);
+10. LM training: (a) qwen2-1.5b at its full published config, bfloat16
+   parameters, float32 moments, remat "full", the attention rescaled:
+   ``Trainer`` for 4 steps on a repeated batch of ``SyntheticLM(151,936,
+   8, 1,024, seed=0)``, every loss and grad norm finite and the batch's
+   loss after training below its first-step loss; step ms (CUDA events,
+   median of steps 2-4), tokens/s, peak memory, the share of the 6 N T
+   bound at 989 TFLOP/s, and one profiled step's busy time; (b) full width
+   cut to 2 layers in float32 (TF32 off), B 2 x S 256: the loss and every
+   gradient on the card against the port's CPU run (< 1e-4, each leaf <
+   1e-3), remat none/full/dots on the card (< 1e-6), and a compressed
+   ``make_train_step`` step on the card against the CPU's step on the same
+   gradients (< 1e-3); (c) full width cut to 2 layers in bfloat16: resume
+   4 -> 8 steps, NaN rollback, preemption, with the snapshot's bytes and
+   save/restore seconds; (d) ``python -m repro_torch.launch.train --arch
+   qwen2-1.5b --steps 3 --batch 4 --seq 512`` as a subprocess, then
+   ``examples/train_lm_torch.py --steps 10`` (``REPRO_LM=1``), whose
+   ``bitmap`` token-set mine launches kernel 2 once per row block and
+   candidate chunk of every wave (``train_example`` in the ``kernels``
+   line).
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -136,6 +155,7 @@ and, last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -148,6 +168,7 @@ POPC_PER_CLK_PER_SM = 16     # 32-bit popcount issue rate, compute capability 9.
 # Dense int8 tensor-core operations per clock per SM on Hopper: the data
 # sheet's 1,979 TOP/s is 8,192 x 132 SMs x 1,830 MHz.
 INT8_OPS_PER_CLK_PER_SM = 8192
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 BLOCK_N, CAND_BLOCK = 2048, 32_768  # the miner's default row block / chunk
 SLOT = 3125  # phase 6's T10I4D100K slot: 32 slots hold the 100,000 baskets
 CAND_UNIT = 8  # the level ladder's candidate pad quantum
@@ -2141,6 +2162,452 @@ def lm_phase():
     return out, {"token_miner": counts}
 
 
+# -- phase 10: LM training on the card -------------------------------------------
+
+
+def train_full_width(steps=4, batch=8, seq=1024, lr=3e-5):
+    """(a) qwen2-1.5b at its full published config: bf16 parameters,
+    float32 moments, remat "full", ``Trainer`` for ``steps`` steps on a
+    repeated batch, step 0 of ``SyntheticLM(151,936, batch, seq,
+    seed=0)``.  Every loss and grad norm must be finite, and the batch's
+    loss after training below its first-step loss.  Step ms are CUDA
+    events around each ``train_step`` call (the trainer then reads the loss
+    on the host); one more step runs under ``torch.profiler`` for the
+    device's busy time and the kernels that take it.
+
+    The attention weights are rescaled to std 1/sqrt(true fan-in)
+    (``scale_attention``) before training.  With the reference's init
+    (``wo`` std 1/sqrt(head_dim) over n_heads * head_dim inputs, near
+    one-hot softmaxes) each layer adds ~100 to the residual stream, the
+    loss (which, as in the reference, skips ``final_norm``) starts near
+    1,782 and the float32 sum of squared gradients overflows: grad norm
+    inf, so clipping zeroes every update.  From the rescaled init, lr 1e-3
+    and 3e-4 raise the loss within 4 steps; ``lr`` is 3e-5."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_config("qwen2-1.5b")
+    n_params = cfg.param_count()
+    pipe = SyntheticLM(cfg.vocab_size, batch, seq, seed=0)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch0 = pipe.batch_at(0)
+    trainer = Trainer(cfg, OptConfig(lr=lr, total_steps=steps,
+                                     warmup_steps=1),
+                      TrainerConfig(total_steps=steps, ckpt_every=10 ** 9),
+                      lambda start: itertools.repeat(batch0), device="cuda")
+    with torch.no_grad():
+        scale_attention(trainer.params, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    events, real = [], trainer.train_step
+
+    def timed(p, o, b, s):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = real(p, o, b, s)
+        end.record()
+        events.append((start, end))
+        return out
+
+    trainer.train_step = timed
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = trainer.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    on_card = {k: v.cuda() for k, v in batch0.items()}
+    with torch.no_grad():
+        after = float(M.loss_fn(trainer.params, on_card, cfg)[0])
+    prof = profile_step(real, trainer, on_card)
+    losses = [r["loss"] for r in res["log"]]
+    norms = [r["grad_norm"] for r in res["log"]]
+    tokens = batch * seq
+    med = float(np.median(step_ms[1:]))
+    flops = 6 * n_params * tokens
+    bound_ms = flops / BF16_FLOPS * 1e3
+    rec = {"arch": "qwen2-1.5b", "n_params": n_params, "batch": batch,
+           "seq": seq, "steps": steps, "remat": cfg.remat, "init_s": init_s,
+           "run_s": run_s, "step_ms": step_ms, "step_ms_median_2_on": med,
+           "tokens_per_s": tokens / (med / 1e3), "peak_bytes": peak,
+           "losses": losses, "grad_norms": norms,
+           "loss_first_batch_after": after, "model_flops": flops,
+           "bound_ms": bound_ms, "bound_share": bound_ms / med,
+           "host_sec": [r["sec"] for r in res["log"]], "profile": prof}
+    print(f"train qwen2-1.5b full width ({n_params} parameters, bf16, "
+          f"float32 moments, remat {cfg.remat}): batch {batch} x {seq} "
+          f"tokens; init {init_s:.2f} s; step ms (CUDA events) "
+          f"{[round(x, 2) for x in step_ms]}, median of steps 2-{steps} "
+          f"{med:.2f} ms, {rec['tokens_per_s']:.0f} tokens/s; peak memory "
+          f"{peak / 1e9:.3f} GB; 6 N T = {flops:.4e} flops, {bound_ms:.2f} ms "
+          f"at {BF16_FLOPS / 1e12:.0f} TFLOP/s: {100 * rec['bound_share']:.1f} "
+          f"% of the bound; losses {losses}, grad norms {norms}; the "
+          f"batch's loss after training {after:.4f} (first step "
+          f"{losses[0]:.4f}); profiled step: wall {prof['wall_ms']:.1f} ms, "
+          f"device busy {prof['busy_ms']:.1f} ms")
+    for ms, n, name in prof["top"]:
+        print(f"  {ms:9.2f} ms {n:6d} x {name}")
+    if res["final_step"] != steps or not all(
+            np.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"train: non-finite or short run {res}")
+    if not after < losses[0]:
+        raise AssertionError(f"train: the batch's loss did not fall "
+                             f"({losses[0]} -> {after})")
+    del trainer
+    return rec
+
+
+def profile_step(step, trainer, batch, top=12):
+    """One more ``step`` of ``trainer``'s state under ``torch.profiler``:
+    host wall ms, the device's busy ms (the sum of kernel times) and the
+    ``top`` kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(trainer.params, trainer.opt_state, batch, trainer.step)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.self_device_time_total]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": wall,
+            "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "kernels": sum(e.count for e in kernels),
+            "top": [(e.self_device_time_total / 1e3, e.count, e.key[:100])
+                    for e in kernels[:top]]}
+
+
+def _grads_on(params, batch, cfg):
+    from repro_torch.train import train_step as TT
+
+    loss, _, grads = TT._microbatch_grads(params, batch, cfg, 1)
+    return float(loss), grads
+
+
+def _fed_step(cfg, ocfg, params, batch, grads, device):
+    """One compressed ``make_train_step`` step, from zero optimizer state,
+    whose gradients are ``grads``: the step's compression and AdamW on
+    given inputs.  Returns the leaves of (params, opt state)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize, tree_leaves
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.train_step import opt_abstract_with_ef
+
+    opt = materialize(None, opt_abstract_with_ef(M.abstract_params(cfg), ocfg,
+                                                 True), device=device)
+    real = TT._microbatch_grads
+    TT._microbatch_grads = lambda *a: (torch.zeros(()), {}, grads)
+    try:
+        p, o, _ = TT.make_train_step(cfg, ocfg, 1, True)(params, opt, batch, 0)
+    finally:
+        TT._microbatch_grads = real
+    return ([t.detach().cpu() for t in tree_leaves(p)],
+            [t.detach().cpu() for t in tree_leaves(o)])
+
+
+def _rel(got, want, base=None) -> float:
+    """||got - want|| / ||want - base|| (base 0), on the CPU in float32."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    scale = want if base is None else want - base.float()
+    return float((got - want).norm() / max(float(scale.norm()), 1e-30))
+
+
+def train_grads(layers=2, batch=2, seq=256):
+    """(b) qwen2-1.5b at full width cut to ``layers`` layers, float32, TF32
+    off, the attention rescaled as in (a) (from the reference's init the
+    loss is 483 and the near one-hot softmaxes amplify float32 rounding:
+    a leaf's gradient lies 7.4e-3 from the CPU's at a loss 2.1e-6 apart).
+    Held: the loss and every gradient on the card against the port's
+    own CPU run from the same weights (loss < 1e-4 relative, each leaf
+    ||dg|| / ||g|| < 1e-3); remat none and dots against full on the card
+    (< 1e-6); one compressed ``make_train_step`` step on the card against
+    the CPU's step on the same gradients (parameters ||dp|| / ||p - p0||,
+    m, v, ef ||d|| / ||ref||: < 1e-3).  Printed only: the compressed step
+    from each side's own gradients, where an int8 rounding boundary turns
+    a gradient's last-bit difference into a whole quantum."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize, tree_leaves, tree_map
+    from repro_torch.train.optimizer import OptConfig
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the float32 check")
+    t_start = time.perf_counter()
+    base = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=layers)
+    torch.cuda.empty_cache()
+    p0 = materialize(torch.Generator(device="cuda").manual_seed(2),
+                     M.abstract_params(base), dtype_override=torch.float32)
+    scale_attention(p0, base)
+    p0_cpu = tree_map(lambda t: t.cpu(), p0)
+
+    def fresh(device):
+        return M.trainable(tree_map(lambda t: t.clone().to(device), p0_cpu))
+
+    b_cpu = SyntheticLM(base.vocab_size, batch, seq, seed=1).batch_at(0)
+    b_card = {k: v.cuda() for k, v in b_cpu.items()}
+    card = {}
+    for mode in ("none", "full", "dots"):
+        card[mode] = _grads_on(fresh("cuda"), b_card,
+                               dataclasses.replace(base, remat=mode))
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = _grads_on(fresh("cpu"), b_cpu,
+                                    dataclasses.replace(base, remat="none"))
+    cpu_s = time.perf_counter() - t0
+    card_loss, card_grads = card["full"]
+    nonzero = [float(g.abs().max()) > 0 for g in tree_leaves(cpu_grads)]
+    loss_rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    grad_rel = max(_rel(a, b) for a, b, nz in zip(
+        tree_leaves(card_grads), tree_leaves(cpu_grads), nonzero) if nz)
+    remat_rel = max(_rel(a, b) for mode in ("none", "dots")
+                    for a, b, nz in zip(tree_leaves(card[mode][1]),
+                                        tree_leaves(card_grads), nonzero)
+                    if nz)
+    del card
+
+    ocfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    leaves0 = tree_leaves(p0_cpu)
+    on_card = _fed_step(base, ocfg, fresh("cuda"), b_card, card_grads,
+                        "cuda")
+    fed = _fed_step(base, ocfg, fresh("cpu"), b_cpu,
+                    tree_map(lambda g: g.detach().cpu(), card_grads), "cpu")
+    own = _fed_step(base, ocfg, fresh("cpu"), b_cpu, cpu_grads, "cpu")
+    step_rel = max([_rel(a, b, z) for a, b, z in zip(on_card[0], fed[0],
+                                                      leaves0)]
+                   + [_rel(a, b) for a, b in zip(on_card[1], fed[1])
+                      if float(b.float().abs().max()) > 0])
+    own_rel = max(_rel(a, b, z) for a, b, z in zip(on_card[0], own[0],
+                                                   leaves0))
+    out = {"layers": layers, "batch": batch, "seq": seq,
+           "loss_card": card_loss, "loss_cpu": cpu_loss,
+           "loss_rel": loss_rel, "grad_rel_max": grad_rel,
+           "remat_rel_max": remat_rel, "compress_step_rel_max": step_rel,
+           "compress_own_grads_rel_max": own_rel, "cpu_backward_s": cpu_s,
+           "wall_s": time.perf_counter() - t_start}
+    print(f"train grads qwen2-1.5b full width, {layers} layers, float32, "
+          f"batch {batch} x {seq}: loss card {card_loss:.6f} vs CPU "
+          f"{cpu_loss:.6f} ({loss_rel:.3e}, held < 1e-4); max leaf "
+          f"||dg||/||g|| {grad_rel:.3e} (held < 1e-3); remat none/dots vs "
+          f"full {remat_rel:.3e} (held < 1e-6); compressed step on the "
+          f"same gradients {step_rel:.3e} (held < 1e-3), from each side's "
+          f"own gradients {own_rel:.3e} (printed); CPU backward "
+          f"{cpu_s:.2f} s, {out['wall_s']:.1f} s in all")
+    if not (loss_rel < 1e-4 and grad_rel < 1e-3 and remat_rel < 1e-6
+            and step_rel < 1e-3):
+        raise AssertionError(f"train grads: card != CPU {out}")
+    return out
+
+
+def train_faults(layers=2, batch=2, seq=256):
+    """(c) qwen2-1.5b at full width cut to ``layers`` layers, bfloat16
+    parameters, snapshots in a temporary directory: resume (4 steps with a
+    snapshot every 4, then a new ``Trainer`` goes on to 8), NaN rollback
+    (the step wrapped as ``tests/test_trainer.py`` wraps it: step 2's loss
+    reported NaN after its in-place update, snapshots every 2) and
+    preemption (``max_seconds=1e-9``: one step, then a snapshot), on a
+    repeated batch with the attention rescaled, as in (a).  Records the
+    snapshot's bytes and every save's and restore's seconds."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = dataclasses.replace(get_config("qwen2-1.5b"), n_layers=layers)
+    batch0 = SyntheticLM(cfg.vocab_size, batch, seq, seed=2).batch_at(0)
+    ocfg = OptConfig(lr=3e-5, total_steps=8, warmup_steps=1)
+    saves, restores = [], []
+
+    def trainer(d, **kw):
+        t = Trainer(cfg, ocfg, TrainerConfig(ckpt_dir=d, **kw),
+                    lambda start: itertools.repeat(batch0), device="cuda")
+        with torch.no_grad():
+            scale_attention(t.params, cfg)
+        save, restore = t.save, t._restore
+
+        def timed_save():
+            t0 = time.perf_counter()
+            save()
+            saves.append(time.perf_counter() - t0)
+
+        def timed_restore():
+            t0 = time.perf_counter()
+            out = restore()
+            if out is not None:
+                restores.append(time.perf_counter() - t0)
+            return out
+
+        t.save, t._restore = timed_save, timed_restore
+        return t
+
+    torch.cuda.empty_cache()
+    t_start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        d = os.path.join(root, "resume")
+        r1 = trainer(d, total_steps=4, ckpt_every=4).run()
+        snap = os.path.join(d, f"step_{4:08d}")
+        snap_bytes = sum(os.path.getsize(os.path.join(snap, f))
+                         for f in os.listdir(snap))
+        t2 = trainer(d, total_steps=8, ckpt_every=4)
+        r2 = t2.run()
+        if not (r1["final_step"] == 4 and r2["final_step"] == 8
+                and [r["step"] for r in r2["log"]] == [5, 6, 7, 8]
+                and all(p.requires_grad for p in tree_leaves(t2.params))
+                and r2["final_loss"] < r1["log"][0]["loss"]):
+            raise AssertionError(f"train resume: {r1} then {r2}")
+
+        d = os.path.join(root, "rollback")
+        t3 = trainer(d, total_steps=4, ckpt_every=2)
+        real, poisoned = t3.train_step, []
+
+        def evil_step(p, o, b, s):
+            p2, o2, m = real(p, o, b, s)
+            if int(s) == 2 and not poisoned:
+                poisoned.append(s)
+                m = dict(m, loss=torch.tensor(float("nan"), device="cuda"))
+            return p2, o2, m
+
+        t3.train_step = evil_step
+        r3 = t3.run()
+        if not (r3["final_step"] == 4 and np.isfinite(r3["final_loss"])
+                and len(poisoned) == 1):
+            raise AssertionError(f"train rollback: {r3}")
+
+        d = os.path.join(root, "preempt")
+        r4 = trainer(d, total_steps=8, ckpt_every=4, max_seconds=1e-9).run()
+        if not (r4["final_step"] == 1 and ckpt.latest_step(d) == 1):
+            raise AssertionError(f"train preemption: {r4}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"layers": layers, "batch": batch, "seq": seq,
+           "snapshot_bytes": snap_bytes, "save_s": saves,
+           "restore_s": restores, "losses_resume": [
+               r["loss"] for r in r1["log"] + r2["log"]],
+           "losses_rollback": [r["loss"] for r in r3["log"]],
+           "wall_s": time.perf_counter() - t_start}
+    print(f"train faults qwen2-1.5b full width, {layers} layers, bf16: "
+          f"resume 4 -> 8 steps, NaN rollback at step 2, preemption after 1 "
+          f"step: all pass; snapshot {snap_bytes / 1e9:.3f} GB, save s "
+          f"{[round(x, 2) for x in saves]}, restore s "
+          f"{[round(x, 2) for x in restores]}, {out['wall_s']:.1f} s")
+    return out
+
+
+def train_entry_points(root):
+    """(d) ``python -m repro_torch.launch.train --arch qwen2-1.5b --steps 3
+    --batch 4 --seq 512`` as a subprocess (exit 0, its JSON line), then
+    ``examples/train_lm_torch.py --steps 10`` with ``REPRO_LM=1`` in this
+    process, its ``bitmap`` token-set mine launching the tensor-core kernel
+    once per row block and candidate chunk of every wave and equal to a
+    ``perfect_hash`` mine of the same windows."""
+    import runpy
+    import shutil
+    import tempfile
+
+    from repro_torch.analytics import TokenSetMiner
+    from repro_torch.kernels.support_count import launches, reset_launches
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "qwen2-1.5b", "--steps", "3", "--batch", "4", "--seq", "512"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, cwd=root, capture_output=True,
+                          text=True, timeout=600)
+    launcher_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launch.train exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"launcher: {' '.join(cmd[1:])} -> {summary} in {launcher_s:.1f} s")
+    if summary["final_step"] != 3 or not math.isfinite(summary["final_loss"]):
+        raise AssertionError(f"launch.train: {summary}")
+
+    path = os.path.join(root, "examples", "train_lm_torch.py")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    saved_argv, saved_env = sys.argv, os.environ.get("REPRO_LM")
+    mined, mine_args, real_mine = [], [], TokenSetMiner.mine_steps
+
+    def logged_mine(self, pipeline, steps):
+        steps = list(steps)
+        res = real_mine(self, pipeline, steps)
+        mined.append(res)
+        mine_args.append((self, pipeline, steps))
+        return res
+
+    t0 = time.perf_counter()
+    try:
+        sys.argv = [path, "--steps", "10", "--ckpt-dir", ckpt_dir]
+        os.environ["REPRO_LM"] = "1"
+        TokenSetMiner.mine_steps = logged_mine
+        with WaveLog() as waves:
+            reset_launches()
+            runpy.run_path(path, run_name="__main__")
+            got = dict(launches)
+    finally:
+        TokenSetMiner.mine_steps = real_mine
+        sys.argv = saved_argv
+        if saved_env is None:
+            os.environ.pop("REPRO_LM", None)
+        else:
+            os.environ["REPRO_LM"] = saved_env
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    example_s = time.perf_counter() - t0
+    want = {k: 0 for k in got}
+    want["support_count"] = waves.expected("bitmap", mined[0].n_transactions)
+    print(f"example: examples/train_lm_torch.py --steps 10 in {example_s:.1f} "
+          f"s, launches {got} (expected {want})")
+    if len(mined) != 1 or got != want or want["support_count"] <= 0:
+        raise AssertionError(f"example: launches {got} != {want}")
+    # The example's bitmap mine (one partial row block at this shape) must
+    # equal a perfect_hash mine of the same windows, as in phase 9.
+    ex, pipe, steps = mine_args[0]
+    ref = TokenSetMiner(min_support=ex.miner.min_support, store="perfect_hash",
+                        window=ex.window, max_k=ex.miner.max_k,
+                        device="cuda").mine_steps(pipe, steps)
+    print(f"example mine: {len(mined[0].itemsets)} itemsets over "
+          f"{mined[0].n_transactions} windows; perfect_hash mine "
+          f"{len(ref.itemsets)} itemsets")
+    if not mined[0].itemsets or mined[0].itemsets != ref.itemsets:
+        raise AssertionError("example: bitmap mine's itemsets/supports "
+                             "differ from the perfect_hash mine")
+    return {"launcher": summary, "launcher_s": launcher_s,
+            "example_s": example_s, "example_launches": got}, got
+
+
+def train_phase(root):
+    """Phase 10: (a) qwen2-1.5b full-width training, (b) card gradients
+    against the CPU, (c) the fault paths, (d) the entry points."""
+    t_phase = time.perf_counter()
+    out = {"full_width": train_full_width(), "grads": train_grads(),
+           "faults": train_faults()}
+    out["entry_points"], counts = train_entry_points(root)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 10: {out['wall_s']:.1f} s")
+    return out, {"train_example": counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -2231,6 +2698,10 @@ def main() -> int:
     # stream through both kernels.
     lm, lm_paths = lm_phase()
     by_path.update(lm_paths)
+    # Phase 10: LM training on the card; the example's token-set mine
+    # counts through the bitmap kernel.
+    train, train_paths = train_phase(root)
+    by_path.update(train_paths)
     # Host phases of the T10I4D100K mine that no JobProfile row holds: the
     # ingest pass and the speculative C3 generated while C2 counts.
     from repro_torch.core.itemsets import apriori_gen_matrix
@@ -2260,6 +2731,7 @@ def main() -> int:
                        "out_of_core": {"mines": ooc_mines, "host": ooc_host},
                        "serve": {"runs": serve_runs, "cli_s": cli_s},
                        "hadoop": hadoop, "sharded": sharded, "lm": lm,
+                       "train": train,
                        "device": device,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -6,7 +6,9 @@ port's: the ``blocks`` subtree's ``head``/``scan``/``tail`` layout becomes
 one tree per layer, in ``blocks.layer_kinds`` order, with each ``scan``
 leaf's leading ``n_super`` axis unstacked back into layers.  Tied
 embeddings carry no ``lm_head`` on either side.  ``cache_from_reference``
-does the same for caches.
+does the same for caches, and ``opt_state_from_reference`` for the
+optimizer state (``m``, ``v`` and, with compression, ``ef``: each a tree
+shaped like the parameters).
 
 bfloat16 arrays (numpy ``dtype.name == "bfloat16"``, the ``ml_dtypes``
 type) are read through their bits, ``uint16`` -> ``int16`` ->
@@ -85,6 +87,12 @@ def params_from_reference(tree, cfg: ModelConfig, device="cuda", model=None):
                                  f"{tuple(dst.shape)} parameter")
             dst.copy_(src)
     return mine
+
+
+def opt_state_from_reference(state, cfg: ModelConfig, device="cuda"):
+    """The reference's optimizer state (numpy leaves; ``m``, ``v`` and
+    optionally ``ef``, each shaped like the parameters) as the port's."""
+    return {k: params_from_reference(v, cfg, device) for k, v in state.items()}
 
 
 def cache_from_reference(cache, cfg: ModelConfig, device="cuda"):

@@ -3,12 +3,17 @@ port of the JAX package's ``models/model.py``).
 
 Token LMs and the audio encoder (frame embeddings in) run through the dense
 layer kinds the port has; architectures with an unported mixer raise
-``NotImplementedError`` when their tree is built (ROADMAP.md).  ``loss_fn``
-and the multi-token-prediction loss belong to the training slice.
+``NotImplementedError`` when their tree is built (ROADMAP.md).
+
+``loss_fn`` is the reference's: mean next-token cross-entropy over
+``seq_chunk`` slices of the sequence (labels < 0 masked), the MoE aux term
+and, with ``cfg.mtp``, the multi-token-prediction loss.  Like the
+reference, it scores the last layer's hidden state without ``final_norm``.
 
 ``LM`` holds a parameter tree as an ``nn.Module`` (``state_dict`` keys are
 the tree's paths); ``ServeEngine`` and ``convert.params_from_reference``
-take one.
+take one.  Its leaves are frozen; ``trainable`` arms a tree's leaves (a
+plain tree's or ``LM.params``) for ``torch.autograd.grad``.
 """
 
 from __future__ import annotations
@@ -18,11 +23,12 @@ from typing import Dict
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.params import spec
+from repro_torch.models.params import spec, tree_map
 
 
 # -- parameters -----------------------------------------------------------------
@@ -79,6 +85,86 @@ def forward(params, batch, cfg: ModelConfig):
     )
 
 
+def _ce_chunk(params, x_chunk, labels_chunk, cfg):
+    """(sum of the masked token losses, count of unmasked labels)."""
+    logits = _logits(params, x_chunk, cfg)              # (B, c, V) f32
+    lse = torch.logsumexp(logits, dim=-1)
+    # A masked label gathers column 0 (the reference wraps it to V - 1):
+    # either way the product with the mask is 0.
+    idx = labels_chunk.clamp(min=0).long()[..., None]
+    ll = torch.gather(logits, -1, idx)[..., 0]
+    mask = labels_chunk >= 0
+    return torch.sum((lse - ll) * mask), torch.sum(mask).float()
+
+
+def loss_fn(params, batch, cfg: ModelConfig, aux_coef: float = 0.01,
+            seq_chunk: int = 512):
+    """Mean next-token CE (labels < 0 are masked) + MoE aux loss.
+
+    The unembedding is evaluated in sequence chunks so the (B, S, V) logits
+    tensor is never materialized (V up to 256k).  Unless
+    ``cfg.unroll_loops``, each whole chunk runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of its
+    scan body), so backward holds one chunk's float32 logits at a time; the
+    remainder past ``n_chunks * seq_chunk`` runs unwrapped, as there.
+    Returns (total, {"ce", "aux"}).
+    """
+    x, aux = forward(params, batch, cfg)
+    labels = batch["labels"]
+    s = x.shape[1]
+    seq_chunk = min(seq_chunk, s)
+    n_chunks = s // seq_chunk
+    usable = n_chunks * seq_chunk
+
+    wrap = not cfg.unroll_loops and torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * seq_chunk, (c + 1) * seq_chunk)
+        args = (params, x[:, sl], labels[:, sl], cfg)
+        t, n = (checkpoint(_ce_chunk, *args, use_reentrant=False) if wrap
+                else _ce_chunk(*args))
+        tot, cnt = tot + t, cnt + n
+    if usable < s:
+        t2, c2 = _ce_chunk(params, x[:, usable:], labels[:, usable:], cfg)
+        tot, cnt = tot + t2, cnt + c2
+    loss = tot / torch.clamp(cnt, min=1.0)
+    total = loss + aux_coef * aux
+    metrics = {"ce": loss, "aux": aux}
+
+    if cfg.mtp and "mtp" in params:
+        total = total + cfg.mtp_lambda * _mtp_loss(params, x, batch, cfg)
+    return total, metrics
+
+
+def _mtp_loss(params, h, batch, cfg: ModelConfig):
+    """DeepSeek-V3 multi-token prediction: one extra block consumes the trunk
+    hidden state at t fused with the embedding of token t+1 and predicts the
+    label at t+1 (i.e. token t+2). Positions without a t+2 label are masked.
+    """
+    from repro_torch.models import blocks as B
+
+    mp = params["mtp"]
+    labels = batch["labels"]
+    b, s = labels.shape
+    # embedding of the next input token = the label at t (token t+1)
+    nxt = torch.clamp(labels, 0, cfg.vocab_size - 1)
+    e_next = L.embed(params["embed"], nxt)
+    fused = torch.cat(
+        [L.rmsnorm(mp["h_norm"], h), L.rmsnorm(mp["e_norm"], e_next)], dim=-1)
+    x = fused @ mp["proj"]["w"]
+    kinds = B.layer_kinds(cfg)[-1]
+    x, _ = B.layer_apply(mp["block"], x, *kinds, cfg,
+                         positions=_positions(b, s, x.device),
+                         vis_embeds=batch.get("vis_embeds"))
+    # predict token t+2: label for position t is labels[t+1]
+    mtp_labels = torch.cat(
+        [labels[:, 1:], torch.full((b, 1), -1, dtype=labels.dtype,
+                                   device=labels.device)], dim=1)
+    tot, cnt = _ce_chunk(params, x, mtp_labels, cfg)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
 # -- serving ----------------------------------------------------------------------
 
 def abstract_cache(cfg: ModelConfig, batch: int, max_len: int):
@@ -114,6 +200,13 @@ def decode_step(params, tokens, cache, cache_len: int, cfg: ModelConfig):
 
 # -- module -----------------------------------------------------------------------
 
+def trainable(tree):
+    """``tree`` with every leaf set, in place, to take gradients: what
+    ``materialize``, ``convert`` and ``checkpoint.restore`` return takes
+    none, and the train step differentiates with respect to the leaves."""
+    return tree_map(lambda t: t.requires_grad_(True), tree)
+
+
 class _Tree(nn.Module):
     """One dict level of a parameter tree: sub-dicts become submodules,
     tensors frozen parameters (sharing their storage)."""
@@ -134,7 +227,8 @@ class _Tree(nn.Module):
 
 class LM(nn.Module):
     """The parameter tree of ``cfg`` as an ``nn.Module``; ``params`` gives
-    the tree back for the functions of this module."""
+    the tree back for the functions of this module.  Serving takes it
+    frozen; ``trainable(lm.params)`` arms its leaves for training."""
 
     def __init__(self, cfg: ModelConfig, params):
         super().__init__()

@@ -7,8 +7,11 @@ unrolled tail (``StackPlan``).  The port keeps ``plan`` but holds one tree
 per layer, keyed by its index, and loops over them in Python: the layer
 order is ``blocks.layer_kinds(cfg)``, which is head, then the pattern
 ``n_super`` times, then tail (``models/convert.py`` unstacks the reference's
-``scan`` leaves into that order).  Remat is a training concern and waits
-for the training slice.
+``scan`` leaves into that order).
+
+``stack_apply`` (the training forward) keeps the reference's remat units:
+each head and tail layer alone, and each scanned super-block (one pattern
+period: one layer for qwen2, two for gemma2) as one unit (``_remat``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ import dataclasses
 from typing import List, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks
@@ -45,17 +50,83 @@ def plan(cfg: ModelConfig) -> StackPlan:
     )
 
 
+def stacked_layers(cfg: ModelConfig) -> List[List[int]]:
+    """The layer indices whose leaves the reference stacks into one
+    ``scan`` leaf: one list per position in the pattern (empty when no
+    layer is scanned).  A per-tensor rule of the reference (weight decay's
+    rank, int8 compression's scale) sees each list as one tensor."""
+    pl = plan(cfg)
+    n_head, p = len(pl.head), len(pl.pattern)
+    return [[n_head + u * p + j for u in range(pl.n_super)] for j in range(p)]
+
+
 def stack_abstract(cfg: ModelConfig):
     return {str(i): blocks.layer_abstract(cfg, t, c)
             for i, (t, c) in enumerate(blocks.layer_kinds(cfg))}
 
 
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _MATMULS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_save_matmuls)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` as one remat unit under ``cfg.remat``, when autograd records:
+
+    - ``"none"``: no wrapping; backward keeps every activation;
+    - ``"full"``: ``torch.utils.checkpoint`` keeps only the unit's inputs
+      and recomputes the rest in backward (the reference's
+      ``jax.checkpoint``, which saves only layer boundaries);
+    - ``"dots"``: selective checkpointing that keeps the outputs of 2-D
+      matmuls (``aten.mm``, ``aten.addmm``: every weight product) and
+      recomputes the rest.  It stands in for
+      ``checkpoint_dots_with_no_batch_dims``; as there, the attention's
+      batched products (``aten.bmm``) are recomputed.  It differs where
+      torch lowers a product otherwise than XLA: a ``dot_general`` with no
+      batch dimension that torch runs as ``bmm`` is recomputed here.
+    """
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    if cfg.remat == "dots":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=_dots_context)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
 def stack_apply(params, x, cfg: ModelConfig, *, positions, vis_embeds=None):
-    """Scoring forward. Returns (x, aux)."""
+    """Training/scoring forward. Returns (x, aux)."""
+    pl = plan(cfg)
+    kinds = blocks.layer_kinds(cfg)
+    n_head, p = len(pl.head), len(pl.pattern)
+    n_scan = pl.n_super * p
+    # remat units: head layers one by one, super-blocks, tail layers.
+    units = ([[i] for i in range(n_head)]
+             + [list(range(n_head + u * p, n_head + (u + 1) * p))
+                for u in range(pl.n_super)]
+             + [[i] for i in range(n_head + n_scan, len(kinds))])
+
+    def unit_fn(layers):
+        def run(xx):
+            au = torch.zeros((), dtype=torch.float32, device=xx.device)
+            for i in layers:
+                t, c = kinds[i]
+                xx, a = blocks.layer_apply(
+                    params[str(i)], xx, t, c, cfg,
+                    positions=positions, vis_embeds=vis_embeds)
+                au = au + a
+            return xx, au
+        return _remat(run, cfg)
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, (t, c) in enumerate(blocks.layer_kinds(cfg)):
-        x, a = blocks.layer_apply(params[str(i)], x, t, c, cfg,
-                                  positions=positions, vis_embeds=vis_embeds)
+    for layers in units:
+        x, a = unit_fn(layers)(x)
         aux = aux + a
     return x, aux
 

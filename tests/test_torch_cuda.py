@@ -613,3 +613,133 @@ def test_token_set_miner_on_card(cuda, store, kernel):
                             for p in got.levels[1:])
     assert {k: launches[k] - before[k] for k in launches} == {
         k: (expected if k == kernel else 0) for k in launches}
+
+
+# -- LM training ---------------------------------------------------------------
+
+def _train_setup(cfg, dev, seed=0):
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import materialize, tree_map
+
+    params = materialize(torch.Generator().manual_seed(seed),
+                         TM.abstract_params(cfg), dtype_override=torch.float32)
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (4, 64)).astype(np.int32)),
+        "labels": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (4, 64)).astype(np.int32))}
+    return (TM.trainable(tree_map(lambda t: t.to(dev), params)),
+            {k: v.to(dev) for k, v in batch.items()})
+
+
+def _rel_norm(a, b):
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-2b"])
+@pytest.mark.parametrize("compress", [False, True])
+def test_train_step_on_card_matches_cpu(cuda, arch, compress):
+    """A reduced float32 train step (two microbatches) on the card: loss
+    within 1e-4 and every gradient leaf within 1e-3 (relative norm) of the
+    CPU's, TF32 off.  The compressed step's updated parameters, ``m``,
+    ``v`` and ``ef`` are held to the CPU's step fed the card's gradients:
+    int8 rounding boundaries make the compressed update a step function of
+    the gradient's last bits."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import materialize, tree_leaves, tree_map
+    from repro_torch.train import train_step as TT
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import opt_abstract_with_ef
+
+    cfg = get_reduced(arch)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", cuda):
+            p, batch = _train_setup(cfg, dev)
+            loss, _, grads = TT._microbatch_grads(p, batch, cfg, 2)
+            out[str(dev)] = (float(loss), [g.cpu() for g in
+                                           tree_leaves(grads)], grads)
+        (l_cpu, g_cpu, _), (l_card, g_card, grads_card) = (
+            out["cpu"], out[str(cuda)])
+        assert abs(l_card - l_cpu) <= 1e-4 * abs(l_cpu)
+        for a, b in zip(g_card, g_cpu):
+            if float(b.abs().max()) > 0:
+                assert _rel_norm(a, b) < 1e-3
+
+        ocfg = OptConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+        opt_spec = opt_abstract_with_ef(TM.abstract_params(cfg), ocfg,
+                                        compress)
+        states = {}
+        for dev in ("cpu", cuda):
+            p, batch = _train_setup(cfg, dev)
+            opt = materialize(None, opt_spec, device=dev)
+            fed = tree_map(lambda g: g.to(dev), grads_card)
+            real = TT._microbatch_grads
+            TT._microbatch_grads = lambda *a: (torch.zeros(()), {}, fed)
+            try:
+                step = TT.make_train_step(cfg, ocfg, 2, compress)
+                p, opt, _ = step(p, opt, batch, 0)
+            finally:
+                TT._microbatch_grads = real
+            states[str(dev)] = [t.detach().cpu() for t in
+                                tree_leaves({"p": p, "o": opt})]
+        p0 = [t.detach() for t in tree_leaves(
+            {"p": _train_setup(cfg, "cpu")[0],
+             "o": materialize(None, opt_spec, device="cpu")})]
+        for a, b, z in zip(states[str(cuda)], states["cpu"], p0):
+            scale = (b.float() - z.float()).norm()
+            if float(scale) > 0:
+                assert float((a.float() - b.float()).norm() / scale) < 1e-4
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-2b"])
+def test_remat_modes_on_card_give_equal_gradients(cuda, arch):
+    import dataclasses
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import tree_leaves
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        grads = {}
+        for mode in ("none", "full", "dots"):
+            cfg = dataclasses.replace(get_reduced(arch), remat=mode)
+            p, batch = _train_setup(cfg, cuda)
+            loss, _ = TM.loss_fn(p, batch, cfg)
+            grads[mode] = torch.autograd.grad(loss, tree_leaves(p),
+                                              allow_unused=True)
+        for mode in ("full", "dots"):
+            for a, b in zip(grads[mode], grads["none"]):
+                assert (a is None) == (b is None)
+                if b is not None and float(b.abs().max()) > 0:
+                    assert _rel_norm(a, b) < 1e-6
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def test_trainer_on_card_resumes(cuda, tmp_path):
+    from repro_torch.configs import get_reduced
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = get_reduced("qwen2-1.5b")
+    pipe = SyntheticLM(cfg.vocab_size, 2, 32, seed=1)
+    ocfg = OptConfig(lr=1e-3, total_steps=8, warmup_steps=2)
+    kw = dict(ckpt_every=2, ckpt_dir=str(tmp_path))
+    t1 = Trainer(cfg, ocfg, TrainerConfig(total_steps=4, **kw), pipe.iterator)
+    assert tree_leaves(t1.params)[0].is_cuda
+    r1 = t1.run()
+    t2 = Trainer(cfg, ocfg, TrainerConfig(total_steps=8, **kw), pipe.iterator)
+    r2 = t2.run()
+    assert r1["final_step"] == 4 and r2["final_step"] == 8
+    assert all(p.is_cuda and p.requires_grad for p in tree_leaves(t2.params))
+    assert r2["final_loss"] < r1["log"][0]["loss"]

@@ -1,0 +1,580 @@
+"""PyTorch port vs JAX package: the LM's training path (``loss_fn`` with its
+sequence chunks and MTP, gradients, remat, AdamW and its schedule, int8
+gradient compression, the microbatched train step) on the same
+numpy-seeded inputs, with the reference's float32 parameters and optimizer
+state carried across by ``convert``.
+
+The parameters are the reference's seeded init with each layer's attention
+weights rescaled to std 1/sqrt(true fan-in) (``rescale_attention``, as
+``chip_smoke.scale_attention`` does at full width).  The reference's own
+rule (``fan_in = shape[-2]``, so ``wq`` has std 1/sqrt(n_heads)) makes the
+softmaxes near one-hot, and backward through such a stack amplifies float32
+rounding: on that init the two packages' first-layer gradients differ by
+0.7-1.8e-4 (relative norm) at equal losses, and by 0.8-2.7e-6 once
+rescaled.  The loss and gradient tests also run on the unscaled init,
+and so does a three-step default AdamW fed the reference's gradients.
+
+Tolerances:
+- the loss and its metrics: relative error < 1e-5 (float32 on both sides;
+  only the summation order differs);
+- every gradient leaf: ||g_port - g_ref|| / ||g_ref|| < 1e-4 (5e-4 on the
+  unscaled init);
+- a train step's parameters: ||p_port - p_ref|| / ||p_ref - p0|| < 1e-4,
+  and ``m``, ``v``, ``ef``: ||Δ|| / ||ref|| < 1e-4 (AdamW's first steps are
+  near sign(g) * lr, so the update, not the parameter, is the scale).
+  Most step tests run AdamW with ``eps`` = 1e-5: with the default 1e-8, a
+  gradient element of |g| ~ 3e-7, whose float32 value the two packages
+  round differently by a few percent, moves its update g / (|g| + eps) by
+  as much, and the step's parameters then differ by 1.1-5.8e-4 (held at
+  1e-3 by ``test_train_step_default_eps_matches_reference``);
+- ``lr_at``: < 1e-6 absolute; ``compress_grads``: bit for bit; which
+  leaves weight decay moves: exactly.
+"""
+
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_reduced as j_reduced  # noqa: E402
+from repro.distributed import compression as JC  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.models.params import materialize as j_materialize  # noqa: E402
+from repro.train import optimizer as JO  # noqa: E402
+from repro.train import train_step as JT  # noqa: E402
+
+from repro_torch.configs import get_reduced  # noqa: E402
+from repro_torch.distributed import compression as TC  # noqa: E402
+from repro_torch.models import model as TM  # noqa: E402
+from repro_torch.models.convert import (  # noqa: E402
+    opt_state_from_reference, params_from_reference)
+from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.train import optimizer as TO  # noqa: E402
+from repro_torch.train import train_step as TT  # noqa: E402
+
+ARCHS = ["qwen2-1.5b", "gemma2-2b", "phi3-medium-14b", "starcoder2-15b",
+         "hubert-xlarge"]
+S = 64
+EPS = 1e-5
+
+
+def configs(arch, **kw):
+    """(reference config, port config): reduced, at most 3 layers."""
+    kw.setdefault("n_layers", min(3, j_reduced(arch).n_layers))
+    return (dataclasses.replace(j_reduced(arch), **kw),
+            dataclasses.replace(get_reduced(arch), **kw))
+
+
+def rescale_attention(params, cfg):
+    """Every attention leaf (stacked or not) rescaled to std 1/sqrt(true
+    fan-in): d_model for wq/wk/wv, n_heads * head_dim for wo."""
+    d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    factors = {"wq": math.sqrt(h / d), "wk": math.sqrt(kv / d),
+               "wv": math.sqrt(kv / d), "wo": 1 / math.sqrt(h)}
+
+    def walk(tree):
+        for key, sub in tree.items():
+            if key == "attn":
+                for name, f in factors.items():
+                    sub[name] = (sub[name] * f).astype(np.float32)
+            elif isinstance(sub, dict):
+                walk(sub)
+
+    walk(params)
+    return params
+
+
+def ref_params(cfg, seed=0, rescale=True):
+    p = j_materialize(jax.random.PRNGKey(seed), JM.abstract_params(cfg),
+                      dtype_override=jnp.float32)
+    p = jax.tree.map(np.array, p)
+    return rescale_attention(p, cfg) if rescale else p
+
+
+def make_batch(cfg, b=2, s=S, seed=0):
+    rng = np.random.default_rng(seed)
+    batch = {"labels": rng.integers(0, cfg.vocab_size, (b, s), dtype=np.int32)}
+    if cfg.frontend == "audio_frames":
+        batch["frames"] = rng.standard_normal(
+            (b, s, cfg.d_model)).astype(np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (b, s),
+                                       dtype=np.int32)
+    batch["labels"][0, :5] = -1  # masked labels
+    return batch
+
+
+def to_torch(batch):
+    return {k: torch.from_numpy(v.copy()) for k, v in batch.items()}
+
+
+def to_jax(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def port_tree(ref_tree, cfg):
+    """A reference-layout numpy tree (params, grads) in the port's layout."""
+    return params_from_reference(jax.tree.map(np.asarray, ref_tree), cfg,
+                                 "cpu")
+
+
+def rel(got, want) -> float:
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1e-30, np.abs(want).max()))
+
+
+def norm_rel(got, want, base=None) -> float:
+    """||got - want|| / ||want - base|| (base 0)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    scale = want if base is None else want - np.asarray(base, np.float64)
+    return float(np.linalg.norm(got - want) / max(1e-30, np.linalg.norm(scale)))
+
+
+_REF = {}
+
+
+def ref_loss_and_grads(jcfg, params, batch, **kw):
+    """The reference's (loss, metrics, grads) for a config (cached)."""
+    key = (jcfg, tuple(sorted(kw.items())), id(params))
+    if key not in _REF:
+        fn = jax.jit(jax.value_and_grad(
+            lambda p, b: JM.loss_fn(p, b, jcfg, **kw), has_aux=True))
+        (loss, metrics), grads = fn(to_jax(params), to_jax(batch))
+        _REF[key] = (float(loss), {k: float(v) for k, v in metrics.items()},
+                     jax.tree.map(np.asarray, grads))
+    return _REF[key]
+
+
+def port_loss_and_grads(cfg, params, batch, **kw):
+    p = TM.trainable(params_from_reference(params, cfg, "cpu"))
+    loss, metrics = TM.loss_fn(p, to_torch(batch), cfg, **kw)
+    leaves = tree_leaves(p)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    return (float(loss.detach()),
+            {k: float(v.detach()) for k, v in metrics.items()},
+            [g.detach().numpy() for g in grads])
+
+
+_PARAMS = {}
+
+
+def params_for(jcfg, rescale=True):
+    if (jcfg, rescale) not in _PARAMS:
+        _PARAMS[jcfg, rescale] = ref_params(jcfg, rescale=rescale)
+    return _PARAMS[jcfg, rescale]
+
+
+def check_loss_and_grads(jcfg, tcfg, batch, rescale=True, tol=1e-4, **kw):
+    """Holds the loss, its metrics and every gradient leaf to the
+    reference's; returns the worst leaf's ||Δg|| / ||g||."""
+    params = params_for(jcfg, rescale)
+    want_loss, want_m, want_g = ref_loss_and_grads(jcfg, params, batch, **kw)
+    got_loss, got_m, got_g = port_loss_and_grads(tcfg, params, batch, **kw)
+    assert rel(got_loss, want_loss) < 1e-5
+    for k in want_m:
+        assert abs(got_m[k] - want_m[k]) <= 1e-5 * max(1.0, abs(want_m[k])), k
+    want = tree_leaves(port_tree(want_g, tcfg))
+    assert len(want) == len(got_g)
+    worst = 0.0
+    for g, w in zip(got_g, want):
+        assert g.shape == tuple(w.shape)
+        if float(w.abs().max()) == 0.0:
+            assert float(np.abs(g).max()) == 0.0  # e.g. final_norm
+        else:
+            worst = max(worst, norm_rel(g, w.numpy()))
+            assert worst < tol
+    return worst
+
+
+# -- loss_fn and gradients ---------------------------------------------------
+
+@pytest.mark.parametrize("rescale", [True, False])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_fn_matches_reference(arch, rescale):
+    jcfg, tcfg = configs(arch)
+    batch = make_batch(tcfg)
+    params = params_for(jcfg, rescale)
+    want_loss, want_m, _ = ref_loss_and_grads(jcfg, params, batch)
+    with torch.no_grad():
+        loss, metrics = TM.loss_fn(params_from_reference(params, tcfg, "cpu"),
+                                   to_torch(batch), tcfg)
+    assert rel(float(loss), want_loss) < 1e-5
+    assert set(metrics) == set(want_m) == {"ce", "aux"}
+    assert rel(float(metrics["ce"]), want_m["ce"]) < 1e-5
+    assert float(metrics["aux"]) == want_m["aux"] == 0.0
+
+
+@pytest.mark.parametrize("rescale,tol", [(True, 1e-4), (False, 5e-4)])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gradients_match_reference(arch, rescale, tol):
+    """Rescaled, each leaf within 1e-4.  The raw init is the one
+    ``Trainer`` and the launcher run: its near one-hot softmaxes amplify
+    float32 rounding, so each leaf is held at 5e-4 (measured 0.7-1.8e-4);
+    a wrong gradient is off by far more."""
+    jcfg, tcfg = configs(arch)
+    check_loss_and_grads(jcfg, tcfg, make_batch(tcfg), rescale=rescale,
+                         tol=tol)
+
+
+def test_mtp_loss_matches_reference():
+    jcfg, tcfg = configs("qwen2-1.5b", mtp=True)
+    batch = make_batch(tcfg)
+    params = params_for(jcfg)
+    assert "mtp" in params
+    got = TM._mtp_loss(params_from_reference(params, tcfg, "cpu"),
+                       torch.from_numpy(params["embed"]["table"][
+                           batch["tokens"]]), to_torch(batch), tcfg)
+    want = JM._mtp_loss(to_jax(params),
+                        jnp.asarray(params["embed"]["table"][batch["tokens"]]),
+                        to_jax(batch), jcfg)
+    assert rel(float(got), float(want)) < 1e-5
+    check_loss_and_grads(jcfg, tcfg, batch)
+
+
+@pytest.mark.parametrize("seq_chunk,unroll", [(24, False), (24, True),
+                                              (S, True)])
+def test_seq_chunk_remainder_and_unrolled_chunks(seq_chunk, unroll):
+    """S = 64 in chunks of 24: two whole chunks and a remainder of 16."""
+    jcfg, tcfg = configs("gemma2-2b", unroll_loops=unroll)
+    check_loss_and_grads(jcfg, tcfg, make_batch(tcfg), seq_chunk=seq_chunk)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "gemma2-2b"])
+def test_remat_modes_give_equal_gradients(arch):
+    """none, full (one checkpoint per super-block: gemma2's pattern has two
+    layers) and dots give the same loss and gradients."""
+    _, tcfg = configs(arch)
+    jcfg, _ = configs(arch)
+    batch = to_torch(make_batch(tcfg))
+    out = {}
+    for mode in ("none", "full", "dots"):
+        c = dataclasses.replace(tcfg, remat=mode)
+        p = TM.trainable(params_from_reference(params_for(jcfg), c, "cpu"))
+        loss, _ = TM.loss_fn(p, batch, c)
+        out[mode] = (float(loss.detach()),
+                     torch.autograd.grad(loss, tree_leaves(p),
+                                         allow_unused=True))
+    for mode in ("full", "dots"):
+        assert rel(out[mode][0], out["none"][0]) < 1e-6
+        for g, w in zip(out[mode][1], out["none"][1]):
+            if w is None:
+                assert g is None
+            else:
+                assert norm_rel(g.numpy(), w.numpy()) < 1e-6
+
+
+def test_remat_full_recomputes_each_super_block(monkeypatch):
+    """With remat "full", backward runs every layer's forward once more; a
+    gemma2 stack of 3 layers is one checkpointed super-block (two layers)
+    and one tail layer."""
+    from repro_torch.models import blocks as TB
+
+    _, tcfg = configs("gemma2-2b")
+    jcfg, _ = configs("gemma2-2b")
+    calls = []
+    real = TB.layer_apply
+
+    def counted(lp, x, t, c, cfg, **kw):
+        calls.append(t)
+        return real(lp, x, t, c, cfg, **kw)
+
+    monkeypatch.setattr(TB, "layer_apply", counted)
+    for mode, want in (("none", 3), ("full", 6)):
+        calls.clear()
+        c = dataclasses.replace(tcfg, remat=mode)
+        p = TM.trainable(params_from_reference(params_for(jcfg), c, "cpu"))
+        loss, _ = TM.loss_fn(p, to_torch(make_batch(c)), c)
+        loss.backward()
+        assert len(calls) == want, (mode, calls)
+
+
+# -- optimizer ------------------------------------------------------------------
+
+def test_lr_schedule_matches_reference():
+    ocfg = dict(lr=1e-3, warmup_steps=3, total_steps=12)
+    jo, to = JO.OptConfig(**ocfg), TO.OptConfig(**ocfg)
+    for step in range(16):
+        want = float(JO.lr_at(jnp.int32(step), jo))
+        got = TO.lr_at(step, to)
+        assert got.dtype == torch.float32
+        assert abs(float(got) - want) < 1e-6, step
+
+
+def test_compress_grads_bit_for_bit():
+    rng = np.random.default_rng(3)
+    grads = {"a": (rng.standard_normal((64, 33)) * 1e-3).astype(np.float32),
+             "b": {"c": (rng.standard_normal(17) * 10).astype(np.float32),
+                   "z": np.zeros((4, 4), np.float32)}}
+    ef = jax.tree.map(lambda g: (rng.standard_normal(g.shape) * 1e-4).astype(
+        jnp.bfloat16), grads)
+    # As the reference's train step runs it: jitted, where XLA computes the
+    # residual g32 - q * scale as one fused multiply-add (eager JAX rounds
+    # the product first; 274 of 131,072 bfloat16 residuals then differ).
+    jg, jef = jax.jit(JC.compress_grads)(to_jax(grads), to_jax(ef))
+    ef_t = tree_map(lambda a: torch.from_numpy(
+        np.asarray(a).view(np.uint16).view(np.int16)).view(torch.bfloat16), ef)
+    # Any config: this tree has no "blocks" subtree to share scales over.
+    tg, tef = TC.compress_grads(tree_map(torch.from_numpy, grads), ef_t,
+                                get_reduced("qwen2-1.5b"))
+    for got, want in zip(tree_leaves(tg), jax.tree.leaves(jg)):
+        assert np.array_equal(got.numpy().view(np.uint32),
+                              np.asarray(want).view(np.uint32))
+    for got, want in zip(tree_leaves(tef), jax.tree.leaves(jef)):
+        assert got.dtype == torch.bfloat16
+        assert np.array_equal(got.view(torch.int16).numpy().view(np.uint16),
+                              np.asarray(want).view(np.uint16))
+
+
+@pytest.mark.parametrize("arch,kw", [
+    ("qwen2-1.5b", {}),
+    ("gemma2-2b", {"n_layers": 3}),              # one super-block + a tail layer
+    ("gemma2-2b", {"n_layers": 3, "scan_layers": False}),  # all tail
+    ("starcoder2-15b", {"scan_layers": False}),
+])
+def test_weight_decay_mask_matches_reference(arch, kw):
+    """Zero gradients leave only decay: the leaves that move must be the
+    reference's, by its rank rule on its stacked tree."""
+    jcfg, tcfg = configs(arch, **kw)
+    params = params_for(jcfg)
+    ocfg = dict(lr=1e-2, warmup_steps=1, total_steps=10, weight_decay=0.5)
+    zeros = jax.tree.map(np.zeros_like, params)
+    jopt = jax.tree.map(np.zeros_like, {"m": params, "v": params})
+    want, _, _ = JO.opt_update(to_jax(params), to_jax(zeros), to_jax(jopt),
+                               jnp.int32(0), JO.OptConfig(**ocfg))
+    want = port_tree(want, tcfg)
+    p0 = params_from_reference(params, tcfg, "cpu")
+    p = params_from_reference(params, tcfg, "cpu")
+    opt = opt_state_from_reference(jopt, tcfg, "cpu")
+    got, _, _ = TO.opt_update(p, tree_map(torch.zeros_like, p), opt, 0,
+                              TO.OptConfig(**ocfg), decay=TO.decay_mask(tcfg))
+    mask = TO.decay_mask(tcfg)
+    moved_got = [bool((a != b).any()) for a, b in zip(tree_leaves(got),
+                                                      tree_leaves(p0))]
+    moved_want = [bool((a != b).any()) for a, b in zip(tree_leaves(want),
+                                                       tree_leaves(p0))]
+    assert moved_got == moved_want
+    nonzero = [bool(b.abs().max() > 0) for b in tree_leaves(p0)]
+    assert [m and z for m, z in zip(tree_leaves(mask), nonzero)] == moved_want
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        assert rel(a, b) < 1e-6
+    if kw.get("scan_layers") is False:  # 1-D leaves never decay in the tail
+        assert not any(m for m, s in zip(tree_leaves(mask), tree_leaves(p0))
+                       if s.ndim < 2)
+    elif arch == "gemma2-2b":  # the scanned pair's 1-D leaves decay
+        assert all(tree_leaves(mask["blocks"]["0"]))
+        assert not mask["blocks"]["2"]["ln1"]["scale"]
+
+
+# -- the train step ----------------------------------------------------------------
+
+_JSTEP = {}
+
+
+def ref_steps(jcfg, ocfg, microbatches, compress, params, batches,
+              feed=None):
+    """The reference's trajectory: (params, opt state, last loss, the
+    gradients each step fed its optimizer).  With ``feed`` (default: with
+    compression), each step is the reference's train-step body
+    (``compress_grads`` if asked, then ``opt_update``) jitted apart from
+    its ``_microbatch_grads``, so that the port can be fed the very
+    gradients it stepped on."""
+    feed = compress if feed is None else feed
+    key = (jcfg, ocfg, microbatches, compress)
+    if key not in _JSTEP:
+        def apply(p, opt, grads, step):
+            if not compress:
+                return JO.opt_update(p, grads, opt, step, ocfg)
+            grads, new_ef = JC.compress_grads(grads, opt["ef"])
+            p, new_opt, metrics = JO.opt_update(p, grads, opt, step, ocfg)
+            new_opt["ef"] = new_ef
+            return p, new_opt, metrics
+
+        _JSTEP[key] = (
+            jax.jit(JT.make_train_step(jcfg, ocfg, microbatches, compress)),
+            jax.jit(lambda p, b: JT._microbatch_grads(p, b, jcfg,
+                                                      microbatches)),
+            jax.jit(apply))
+    step, grads_of, apply = _JSTEP[key]
+    p = to_jax(params)
+    opt = to_jax(zero_opt(params, compress))
+    grads = []
+    for i, b in enumerate(batches):
+        if feed:
+            loss, metrics, g = grads_of(p, to_jax(b))
+            grads.append((loss, metrics, jax.tree.map(np.asarray, g)))
+            p, opt, _ = apply(p, opt, g, jnp.int32(i))
+        else:
+            p, opt, metrics = step(p, opt, to_jax(b), jnp.int32(i))
+            loss = metrics["loss"]
+    return (jax.tree.map(np.asarray, p), jax.tree.map(np.asarray, opt),
+            float(loss), grads)
+
+
+def zero_opt(params, compress):
+    opt = jax.tree.map(np.zeros_like, {"m": params, "v": params})
+    if compress:
+        opt["ef"] = jax.tree.map(lambda a: np.zeros(a.shape, jnp.bfloat16),
+                                 params)
+    return opt
+
+
+def _np(t):
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy()
+
+
+def train_step_gaps(microbatches, compress, n_steps, monkeypatch,
+                    rescale=True, eps=EPS, feed=None):
+    """The worst relative gaps of the port's step against the reference's,
+    as {"loss", "params", "m", "v"(, "ef")}: ||Δ|| / ||p_ref - p0|| for the
+    parameters, ||Δ|| / ||ref|| for the optimizer state.  With ``feed``
+    (default: with compression) the port steps on the reference's own
+    gradients (see ``ref_steps``)."""
+    feed = compress if feed is None else feed
+    jcfg, tcfg = configs("qwen2-1.5b")
+    ocfg = dict(lr=1e-3, warmup_steps=2, total_steps=10, eps=eps)
+    params = params_for(jcfg, rescale)
+    batches = [make_batch(tcfg, b=4, seed=s) for s in range(n_steps)]
+    want_p, want_o, want_loss, ref_grads = ref_steps(
+        jcfg, JO.OptConfig(**ocfg), microbatches, compress, params, batches,
+        feed)
+
+    if feed:
+        fed = iter(ref_grads)
+
+        def reference_grads(params, batch, cfg, microbatches):
+            loss, metrics, g = next(fed)
+            return (torch.tensor(float(loss)),
+                    {k: torch.tensor(float(v)) for k, v in metrics.items()},
+                    port_tree(g, tcfg))
+
+        monkeypatch.setattr(TT, "_microbatch_grads", reference_grads)
+    step = TT.make_train_step(tcfg, TO.OptConfig(**ocfg), microbatches,
+                              compress)
+    p = TM.trainable(params_from_reference(params, tcfg, "cpu"))
+    opt = opt_state_from_reference(zero_opt(params, compress), tcfg, "cpu")
+    for i, b in enumerate(batches):
+        p, opt, metrics = step(p, opt, to_torch(b), i)
+    assert set(metrics) == {"loss", "ce", "aux", "grad_norm", "lr"}
+    gaps = {"loss": rel(float(metrics["loss"]), want_loss), "params": 0.0}
+
+    p0 = tree_leaves(params_from_reference(params, tcfg, "cpu"))
+    for got, want, base in zip(tree_leaves(p), tree_leaves(port_tree(
+            want_p, tcfg)), p0):
+        assert got.requires_grad
+        gaps["params"] = max(gaps["params"],
+                             norm_rel(_np(got), _np(want), _np(base)))
+    assert set(opt) == set(want_o) == ({"m", "v", "ef"} if compress
+                                       else {"m", "v"})
+    for key in want_o:
+        gaps[key] = 0.0
+        want = tree_leaves(port_tree(want_o[key], tcfg))
+        for got, w in zip(tree_leaves(opt[key]), want):
+            assert got.dtype == w.dtype
+            if float(w.float().abs().max()) == 0.0:
+                assert float(got.float().abs().max()) == 0.0
+            else:
+                gaps[key] = max(gaps[key], norm_rel(_np(got), _np(w)))
+    return gaps
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_matches_reference(microbatches, compress, n_steps,
+                                      monkeypatch):
+    """Without compression, the port's whole step against the reference's.
+
+    With compression, the port's step is fed the gradients the reference
+    computed on its own trajectory (``_microbatch_grads``; the gradients
+    themselves are held by ``test_gradients_match_reference``), and the
+    reference compresses and steps on them (``ref_steps``).  The int8
+    quantizer is a step function of its input: a gradient element that
+    float32 rounding moves across a rounding boundary changes its residual
+    by a whole quantum, and the residual is bfloat16, so end to end ``ef``
+    differs by 4e-4-1e-1 (relative norm) after 1-3 steps on this model
+    though every gradient agrees to 1e-4.  Fed the same gradients, both
+    packages must agree to 1e-4 on the parameters, ``m``, ``v`` and ``ef``:
+    that holds the shared per-stack scale, the residual's rounding and
+    carry, and the order of compression, clipping and AdamW."""
+    gaps = train_step_gaps(microbatches, compress, n_steps, monkeypatch)
+    assert set(gaps) == {"loss", "params", "m", "v"} | (
+        {"ef"} if compress else set())
+    for key, gap in gaps.items():
+        assert gap < 1e-4, key
+
+
+DEFAULT_EPS = TO.OptConfig().eps
+
+
+@pytest.mark.parametrize("n_steps", [1, 3])
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_train_step_default_eps_matches_reference(microbatches, n_steps,
+                                                  monkeypatch):
+    """The whole step with AdamW's default eps (1e-8), each package on its
+    own gradients: tiny gradient elements, rounded differently by a few
+    percent, move their sign-like first updates by as much, so the
+    parameters are held at 1e-3 (measured 1.1-5.8e-4) and the loss, ``m``
+    and ``v`` at 1e-4."""
+    assert DEFAULT_EPS == JO.OptConfig().eps == 1e-8
+    gaps = train_step_gaps(microbatches, False, n_steps, monkeypatch,
+                           eps=DEFAULT_EPS)
+    assert gaps["params"] < 1e-3
+    for key in ("loss", "m", "v"):
+        assert gaps[key] < 1e-4, key
+
+
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_raw_init_default_step_on_reference_gradients(microbatches, compress,
+                                                      monkeypatch):
+    """Three steps from the reference's raw init with the default AdamW, as
+    ``Trainer`` runs them, the port fed the reference's own gradients:
+    everything after the gradients within 1e-4.  (On its own gradients
+    the raw init's 1.8e-4 gradient gap grows to 2 % of the first update and
+    18-23 % of three: the stack is chaotic, see the module docstring.)"""
+    gaps = train_step_gaps(microbatches, compress, 3, monkeypatch,
+                           rescale=False, eps=DEFAULT_EPS, feed=True)
+    for key, gap in gaps.items():
+        assert gap < 1e-4, key
+
+
+def test_train_step_refuses_frozen_leaves():
+    jcfg, tcfg = configs("qwen2-1.5b")
+    step = TT.make_train_step(tcfg, TO.OptConfig())
+    p = params_from_reference(params_for(jcfg), tcfg, "cpu")
+    opt = opt_state_from_reference(
+        jax.tree.map(np.zeros_like, {"m": params_for(jcfg),
+                                     "v": params_for(jcfg)}), tcfg, "cpu")
+    with pytest.raises(ValueError, match="trainable"):
+        step(p, opt, to_torch(make_batch(tcfg)), 0)
+    with pytest.raises(ValueError, match="microbatches"):
+        TT.make_train_step(tcfg, TO.OptConfig(), microbatches=3)(
+            TM.trainable(p), opt, to_torch(make_batch(tcfg)), 0)
+
+
+def test_trainable_module_leaves():
+    """``LM`` serves frozen; ``trainable(lm.params)`` arms the module's own
+    leaves, which share the tree's storage."""
+    jcfg, tcfg = configs("qwen2-1.5b")
+    p = params_from_reference(params_for(jcfg), tcfg, "cpu")
+    frozen, live = TM.LM(tcfg, p), TM.LM(tcfg, p)
+    TM.trainable(live.params)
+    assert not any(t.requires_grad for t in frozen.parameters())
+    assert all(t.requires_grad for t in live.parameters())
+    loss, _ = TM.loss_fn(live.params, to_torch(make_batch(tcfg)), tcfg)
+    loss.backward()
+    assert live.params["embed"]["table"].grad is not None
+    assert (live.params["embed"]["table"].data_ptr()
+            == p["embed"]["table"].data_ptr())
