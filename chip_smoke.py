@@ -41,7 +41,7 @@ result line) when it fails:
 5. out-of-core mining: the same two workloads written to ``.dat`` files in a
    temporary directory (never inside the repository) and mined through
    ``ChunkedDatasetReader`` with SPC, every job streaming every chunk.
-   T10I4D100K at ceil(N/4), ceil(N/16) and ceil(N/64) transactions per chunk
+   T10I4D100K at ceil(N/4) and ceil(N/64) transactions per chunk
    through ``packed_bitmap`` and ``bitmap``, and at ceil(N/4) through
    ``perfect_hash``; BMS_WebView_2 at ceil(N/4) through the two kernel
    stores.  Each mine's itemsets AND supports must equal the phase-4
@@ -73,15 +73,13 @@ result line) when it fails:
    it equal the recount.  Then
    the launcher runs once with the README's arguments;
 7. the paper's Hadoop model beside the card, faults and checkpoints:
-   ``run_parity_cell`` on T10I4D100K (1.0, 0.01) over
+   ``run_parity_cell`` on BMS_WebView_2 (1.0, 0.002) over
    ``sim/hash_table_trie`` and ``sim/trie`` (4 mappers on a process pool)
    and ``TorchRunner`` (``packed_bitmap``, ``bitmap``, ``perfect_hash``) on
-   the card; ``sim/hash_tree`` against ``packed_bitmap`` on T10I4D100K at
-   scale 0.25 (its digest: that quarter's ``perfect_hash`` SPC mine on the
-   card); on BMS_WebView_2 (1.0, 0.002)
-   ``sim/hash_table_trie`` against
-   ``packed_bitmap``.  Every digest must equal phase 4's ``perfect_hash``
-   SPC mine's.  On BMS_WebView_2, ``device_loss`` at the k = 4 dispatch of
+   the card, its digest phase 4's ``perfect_hash`` SPC mine's;
+   ``sim/hash_tree`` against ``packed_bitmap`` on BMS_WebView_2 at scale
+   0.25 (its digest: that quarter's ``perfect_hash`` SPC mine on the
+   card).  On BMS_WebView_2, ``device_loss`` at the k = 4 dispatch of
    the host loop (``packed_bitmap``) and of the ladder (``bitmap``) must
    raise, leave the snapshots of the completed levels, and a fault-free
    runner on the same directory must resume without Job1, launching its
@@ -99,8 +97,8 @@ result line) when it fails:
    in turns; (e) on that rank, ``MiningService(mesh=make_data_mesh())`` over
    the first 4 measured batches of phase 6's T10I4D100K exact plan, every
    answer equal to a ``perfect_hash`` recount; (b) two gloo ranks sharing
-   the card: T10I4D100K SPC (``packed_bitmap``) on 2x1 and 1x2 and
-   BMS_WebView_2's ladder on 2x1; (d) then ``device_loss(k=4, lost=1)``:
+   the card: BMS_WebView_2 SPC (``packed_bitmap``) on 2x1 and 1x2 and its
+   ladder on 2x1; (d) then ``device_loss(k=4, lost=1)``:
    rank 1 leaves, rank 0 rebuilds a one-rank mesh and resumes from the
    level checkpoint; (c) ``python -m repro_torch.launch.multihost`` on two
    gloo ranks, BMS_WebView_2, ``--kill-k 3``: rank 1 exits with 137, one
@@ -120,8 +118,8 @@ result line) when it fails:
    layers (the reference's reduced depth; through all 28 the random stack
    is chaotic, and that error is printed only);
    (b) gemma2-2b at full width, 4 of its 26 layers (two local, two
-   global): batch 1, a 6,144-token prompt, 16 greedy tokens, max_len
-   6,160, so the 4,096 window masks real positions, and the same float32
+   global): batch 1, a 4,608-token prompt, 16 greedy tokens, max_len
+   4,624, so the 4,096 window masks real positions, and the same float32
    check; (c) ``TokenSetMiner(min_support=0.01, window=32, max_k=4)`` over
    steps 0-3 of ``SyntheticLM(151,936, batch=256, seq_len=4096, seed=0)``
    (131,072 windows) through ``bitmap`` and ``packed_bitmap``, each equal to
@@ -140,13 +138,36 @@ result line) when it fails:
    1e-3), remat none/full/dots on the card (< 1e-6), and a compressed
    ``make_train_step`` step on the card against the CPU's step on the same
    gradients (< 1e-3); (c) full width cut to 2 layers in bfloat16: resume
-   4 -> 8 steps, NaN rollback, preemption, with the snapshot's bytes and
-   save/restore seconds; (d) ``python -m repro_torch.launch.train --arch
+   4 -> 8 steps, NaN rollback, preemption (five snapshots, two restores),
+   with the snapshot's bytes and save/restore seconds; (d) ``python -m repro_torch.launch.train --arch
    qwen2-1.5b --steps 3 --batch 4 --seq 512`` as a subprocess, then
    ``examples/train_lm_torch.py --steps 10`` (``REPRO_LM=1``), whose
    ``bitmap`` token-set mine launches kernel 2 once per row block and
    candidate chunk of every wave (``train_example`` in the ``kernels``
-   line).
+   line);
+11. the remaining mixers at full width, random bfloat16 weights from a
+   seeded ``torch.Generator``, each model freed before the next: (a)
+   ``ServeEngine.generate`` (greedy, medians of 3 with prefill ms, decode
+   ms a token, tok/s, peak memory; every logit finite, the runs' tokens
+   equal, the parameter count the reference's) for recurrentgemma-2b
+   (published config, batch 2, a 2,304-token prompt past its 2,048 window,
+   16 tokens), mamba2-2.7b (published config, batch 2, a 1,000-token
+   prompt, no multiple of its 256 chunk, 32 tokens), deepseek-v3-671b (4
+   of 61 layers: its 3 dense-head layers and 1 MoE layer of 256 experts,
+   top-8; batch 2, a 1,024-token prompt: 2 groups at capacity 40, 16
+   tokens) and llama-3.2-vision-11b (published config, 1,600 random patch
+   embeddings a row, every ``attn_gate`` 0.5; batch 2, a 128-token prompt,
+   16 tokens); (b) in float32 (TF32 off) on one pattern period of each
+   (deepseek-v3: a dense-head layer through the model, then its MoE layer
+   alone at capacity factor 64), prefill(S) + decode against a full
+   forward over S + 1 tokens: every layer teacher-forced and the logits
+   end to end with the GQA attention rescaled as in phase 9 (< 1e-3; from
+   the reference's init printed), and greedy tokens independent of how
+   the prompt is split between prefill and decode; (c) one layer of
+   each new kind (rglru, ssd, mla, cross, and the MoE) in float32 on a few
+   tokens on the card against the CPU (< 1e-4; the MoE's experts on the
+   card's routing fed to both sides, the share of tokens routed otherwise
+   printed).  No kernel lies on this path.
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -155,6 +176,7 @@ and, last, ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
 import math
@@ -682,7 +704,9 @@ def out_of_core(workloads, bases):
     from repro_torch.kernels.support_count import (
         launches, pad_copies, reset_launches)
 
-    plans = {"T10I4D100K": [(parts, store) for parts in (4, 16, 64)
+    # T10I4D100K at N/4 and N/64 (N/16 was cut for phase 11's time; the
+    # card tests stream 100-, 333- and 5,000-row chunks).
+    plans = {"T10I4D100K": [(parts, store) for parts in (4, 64)
                             for store in KERNEL_OF] + [(4, "perfect_hash")],
              "BMS_WebView_2": [(4, store) for store in KERNEL_OF]}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ooc_")
@@ -1470,31 +1494,26 @@ def hadoop_phase(workloads, bases, get_dataset):
         return lambda: TorchRunner(store=store, device="cuda")
 
     data = {name: (support, db) for name, support, db in workloads}
-    support, t10 = data["T10I4D100K"]
+    # The sim/* cells run on BMS_WebView_2 only (its ten levels): on
+    # T10I4D100K every card mine also builds the host's speculative C3,
+    # 8.5-10.3 s each (PERF.md).  sim/hash_tree's leaf scans take about 4x
+    # sim/hash_table_trie's time, so it runs at scale 0.25 against that
+    # quarter's perfect_hash SPC mine on the card.
+    support, bms = data["BMS_WebView_2"]
     stores = ["packed_bitmap", "bitmap", "perfect_hash"]
     factories = {f"sim/{s}": sim(s) for s in ("hash_table_trie", "trie")}
     factories.update({f"torch/{s}": card(s) for s in stores})
-    rec["t10"] = parity_cell("T10I4D100K", t10, support, factories,
-                             bases["T10I4D100K"], stores)
-    by_path["cell_t10"] = rec["t10"]["launches"]
-    # sim/hash_tree takes 46.7-89.5 s at full scale on the H100 (its leaf
-    # scans): it runs on T10I4D100K at scale 0.25, against that quarter's
-    # perfect_hash SPC mine on the card, to leave phase 8 its time.
-    quarter = get_dataset("T10I4D100K", 0.25, seed=0)
+    rec["bms"] = parity_cell("BMS_WebView_2", bms, support, factories,
+                             bases["BMS_WebView_2"], stores)
+    by_path["cell_bms"] = rec["bms"]["launches"]
+    quarter = get_dataset("BMS_WebView_2", 0.25, seed=0)
     qbase, _ = mine(quarter, support, "perfect_hash")
-    rec["t10_quarter"] = parity_cell(
-        "T10I4D100K@0.25", quarter, support,
+    rec["bms_quarter"] = parity_cell(
+        "BMS_WebView_2@0.25", quarter, support,
         {"sim/hash_tree": sim("hash_tree"),
          "torch/packed_bitmap": card("packed_bitmap")},
         qbase.itemsets, ["packed_bitmap"])
-    by_path["cell_t10_quarter"] = rec["t10_quarter"]["launches"]
-    support, bms = data["BMS_WebView_2"]
-    rec["bms"] = parity_cell(
-        "BMS_WebView_2", bms, support,
-        {"sim/hash_table_trie": sim("hash_table_trie"),
-         "torch/packed_bitmap": card("packed_bitmap")},
-        bases["BMS_WebView_2"], ["packed_bitmap"])
-    by_path["cell_bms"] = rec["bms"]["launches"]
+    by_path["cell_bms_quarter"] = rec["bms_quarter"]["launches"]
     base = {"support": support, "itemsets": bases["BMS_WebView_2"]}
     rec["device_loss_host"], by_path["device_loss_host"], res = resume_program(
         "BMS_WebView_2", bms, base, "packed_bitmap", False, 4)
@@ -1762,8 +1781,8 @@ def sharded_phase(workloads, bases, mines, scale=1.0, serve=None):
              "store": "packed_bitmap", "shape": [1, 1]},
             {"kind": "serve", "dataset": name, "store": "packed_bitmap",
              "measured": 4, "batch": batch, "cfg": cfg, "scale": scale}])
-        b_progs = [("T10I4D100K", "packed_bitmap", [2, 0], False),
-                   ("T10I4D100K", "packed_bitmap", [1, 2], False),
+        b_progs = [("BMS_WebView_2", "packed_bitmap", [2, 0], False),
+                   ("BMS_WebView_2", "packed_bitmap", [1, 2], False),
                    ("BMS_WebView_2", "packed_bitmap", [2, 0], True)]
         ckpt = os.path.join(tmp, "elastic_ckpt")
         b, b_s = run_cluster(tmp, "gloo", 2, "gloo", [
@@ -1906,12 +1925,16 @@ def events_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def lm_serve(name, cfg, batch, prompt_len, new_tokens, max_len, reps=5):
+def lm_serve(name, cfg, batch, prompt_len, new_tokens, max_len, reps=5,
+             attn_gate=None):
     """``ServeEngine.generate`` in bfloat16 on the card, greedy: every
     run's tokens must agree and every logit be finite.  Times are medians
     (with min and max) of ``reps`` runs each: the one-token ``generate``
     (prefill, the cache's allocation and the fetch to the host) and the
-    full one; decode ms a token is the difference over the other tokens."""
+    full one; decode ms a token is the difference over the other tokens.
+    A vision config gets ``n_vis_tokens`` seeded random patch embeddings a
+    row, and ``attn_gate`` (if given) sets every cross layer's gate: at
+    its zero init a cross layer adds nothing."""
     import numpy as np
     import torch
     from repro_torch.models import model as M
@@ -1919,10 +1942,19 @@ def lm_serve(name, cfg, batch, prompt_len, new_tokens, max_len, reps=5):
     from repro_torch.serve import ServeEngine
 
     dev = torch.device("cuda")
+    gc.collect()  # an earlier phase's reference cycles hold device memory
     torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     params = materialize(torch.Generator(device=dev).manual_seed(0),
                          M.abstract_params(cfg))
+    if attn_gate is not None:
+        _set_gates(params["blocks"].values(), attn_gate)
+    vis = None
+    if cfg.frontend == "vision_patches":
+        vis = torch.randn((batch, cfg.n_vis_tokens, cfg.d_model), device=dev,
+                          generator=torch.Generator(device=dev).manual_seed(3),
+                          dtype=torch.float32).to(torch.bfloat16)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()  # serving's peak, not the init's
@@ -1930,25 +1962,29 @@ def lm_serve(name, cfg, batch, prompt_len, new_tokens, max_len, reps=5):
     engine = ServeEngine(cfg, params, max_len=max_len, device="cuda")
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (batch, prompt_len), dtype=np.int32)
-    engine.generate(prompts, 2)  # warm-up: library handles, allocator
+
+    def generate(n):
+        return engine.generate(prompts, n, vis_embeds=vis)
+
+    generate(2)  # warm-up: library handles, allocator
     with LogitLog() as log:
-        first = engine.generate(prompts, new_tokens)
+        first = generate(new_tokens)
         finite = bool(log.finite)
     outs = []
-    fulls = sorted(events_ms(lambda: outs.append(
-        engine.generate(prompts, new_tokens))) for _ in range(reps))
-    ones = sorted(events_ms(lambda: engine.generate(prompts, 1))
-                  for _ in range(reps))
+    fulls = sorted(events_ms(lambda: outs.append(generate(new_tokens)))
+                   for _ in range(reps))
+    ones = sorted(events_ms(lambda: generate(1)) for _ in range(reps))
     full_ms, prefill_ms = fulls[reps // 2], ones[reps // 2]
     peak = torch.cuda.max_memory_allocated()
     rec = {"arch": name, "n_layers": cfg.n_layers, "batch": batch,
            "prompt": prompt_len, "new_tokens": new_tokens, "max_len": max_len,
+           "n_params": sum(t.numel() for t in tree_leaves(params)),
            "param_bytes": param_bytes, "init_s": init_s, "reps": reps,
            "one_token_generate_ms": prefill_ms, "one_token_generate_ms_all": ones,
            "generate_ms": full_ms, "generate_ms_all": fulls,
            "decode_ms_per_token": (full_ms - prefill_ms) / (new_tokens - 1),
            "tok_s": batch * new_tokens / (full_ms / 1e3),
-           "peak_bytes": peak, "logit_calls": log.calls,
+           "peak_bytes": peak, "base_bytes": base, "logit_calls": log.calls,
            "first_row": first[0, :8].tolist()}
     print(f"lm {name} ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
           f"{cfg.vocab_size}) bf16: {param_bytes / 1e9:.3f} GB of parameters "
@@ -1957,7 +1993,8 @@ def lm_serve(name, cfg, batch, prompt_len, new_tokens, max_len, reps=5):
           f"generate {prefill_ms:.2f} ms ({ones[0]:.2f}-{ones[-1]:.2f}), full "
           f"generate {full_ms:.2f} ms ({fulls[0]:.2f}-{fulls[-1]:.2f}), decode "
           f"{rec['decode_ms_per_token']:.3f} ms a token, {rec['tok_s']:.1f} "
-          f"tok/s, peak memory {peak / 1e9:.3f} GB; first row "
+          f"tok/s, peak memory {peak / 1e9:.3f} GB ({base / 1e9:.3f} GB "
+          f"held before the model was built); first row "
           f"{rec['first_row']}")
     if first.shape != (batch, new_tokens) or not all(
             np.array_equal(first, o) for o in outs):
@@ -1965,7 +2002,7 @@ def lm_serve(name, cfg, batch, prompt_len, new_tokens, max_len, reps=5):
     if not finite or log.calls != new_tokens:
         raise AssertionError(f"lm {name}: non-finite logits ({log.calls} "
                              "logit calls)")
-    del engine, params
+    del engine, params, vis
     return rec
 
 
@@ -1978,11 +2015,23 @@ def scale_attention(params, cfg):
     import math
 
     d, h, kv = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    factors = {"wq": math.sqrt(h / d), "wk": math.sqrt(kv / d),
-               "wv": math.sqrt(kv / d), "wo": 1 / math.sqrt(h)}
     for lp in params["blocks"].values():
+        if "wq" not in lp.get("attn", {}):  # no GQA attention (MLA, SSD)
+            continue
+        factors = {"wq": math.sqrt(h / d), "wk": math.sqrt(kv / d),
+                   "wv": math.sqrt(kv / d), "wo": 1 / math.sqrt(h)}
         for key, f in factors.items():
             lp["attn"][key].mul_(f)
+
+
+def _rel_max(got, want):
+    """max |got - want| / max |want|; non-finite values fail the run."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("non-finite values")
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
 
 
 def lm_consistency(name, cfg, batch, s, max_len, e2e_layers):
@@ -2023,11 +2072,6 @@ def lm_consistency(name, cfg, batch, s, max_len, e2e_layers):
     toks = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (batch, s + 1), dtype=np.int32)).to(dev)
 
-    def rel(got, want):
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"lm {name}: non-finite values")
-        return float((got - want).abs().max() / want.abs().max())
-
     def end_to_end(c):
         cache = materialize(None, M.abstract_cache(c, batch, max_len),
                             dtype_override=torch.float32, device=dev)
@@ -2035,8 +2079,8 @@ def lm_consistency(name, cfg, batch, s, max_len, e2e_layers):
         got, _ = M.decode_step(params, toks[:, s:], cache, s + 1, c)
         del cache
         x, _ = M.forward(params, {"tokens": toks}, c)
-        return rel(got, M._logits(params, L.rmsnorm(params["final_norm"],
-                                                    x[:, -1:]), c)[:, 0])
+        return _rel_max(got, M._logits(params, L.rmsnorm(
+            params["final_norm"], x[:, -1:]), c)[:, 0])
 
     with torch.inference_mode():
         x = M._embed_in(params, {"tokens": toks}, cfg)
@@ -2051,7 +2095,7 @@ def lm_consistency(name, cfg, batch, s, max_len, e2e_layers):
                                        positions=pos[:, :s], cache=cache)
             yd, _ = B.layer_decode(lp, x[:, s:], t, c, cfg, cache=cache,
                                    cache_len=s + 1, positions=pos[:, s:])
-            layer_rel.append(rel(yd, y[:, s:]))
+            layer_rel.append(_rel_max(yd, y[:, s:]))
             x = y
         del x, y, cache
         e2e = end_to_end(dataclasses.replace(cfg, n_layers=e2e_layers))
@@ -2154,8 +2198,8 @@ def lm_phase():
     gemma = dataclasses.replace(get_config("gemma2-2b"), n_layers=4)
     out = {"serve": [lm_serve("qwen2-1.5b", qwen, 4, 128, 32, 256)]}
     out["qwen_f32"] = lm_consistency("qwen2-1.5b", qwen, 4, 128, 256, 3)
-    out["serve"].append(lm_serve("gemma2-2b", gemma, 1, 6144, 16, 6160))
-    out["gemma_f32"] = lm_consistency("gemma2-2b", gemma, 1, 6144, 6160, 4)
+    out["serve"].append(lm_serve("gemma2-2b", gemma, 1, 4608, 16, 4624))
+    out["gemma_f32"] = lm_consistency("gemma2-2b", gemma, 1, 4608, 4624, 4)
     out["token_miner"], counts = token_miner_phase()
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 9: {out['wall_s']:.1f} s")
@@ -2414,13 +2458,15 @@ def train_grads(layers=2, batch=2, seq=256):
 
 def train_faults(layers=2, batch=2, seq=256):
     """(c) qwen2-1.5b at full width cut to ``layers`` layers, bfloat16
-    parameters, snapshots in a temporary directory: resume (4 steps with a
-    snapshot every 4, then a new ``Trainer`` goes on to 8), NaN rollback
+    parameters, snapshots in a temporary directory: resume (4 steps and
+    the final snapshot, then a new ``Trainer`` goes on to 8), NaN rollback
     (the step wrapped as ``tests/test_trainer.py`` wraps it: step 2's loss
-    reported NaN after its in-place update, snapshots every 2) and
-    preemption (``max_seconds=1e-9``: one step, then a snapshot), on a
-    repeated batch with the attention rescaled, as in (a).  Records the
-    snapshot's bytes and every save's and restore's seconds."""
+    reported NaN after its in-place update, a snapshot every 2 steps, 3
+    steps) and preemption (``max_seconds=1e-9``: one step, then a
+    snapshot), on a repeated batch with the attention rescaled, as in (a).
+    Periodic snapshots are off where a program needs none (every run
+    also snapshots when it ends).  Records the snapshot's bytes and every
+    save's and restore's seconds."""
     import dataclasses
     import shutil
     import tempfile
@@ -2466,11 +2512,11 @@ def train_faults(layers=2, batch=2, seq=256):
     root = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         d = os.path.join(root, "resume")
-        r1 = trainer(d, total_steps=4, ckpt_every=4).run()
+        r1 = trainer(d, total_steps=4, ckpt_every=100).run()
         snap = os.path.join(d, f"step_{4:08d}")
         snap_bytes = sum(os.path.getsize(os.path.join(snap, f))
                          for f in os.listdir(snap))
-        t2 = trainer(d, total_steps=8, ckpt_every=4)
+        t2 = trainer(d, total_steps=8, ckpt_every=100)
         r2 = t2.run()
         if not (r1["final_step"] == 4 and r2["final_step"] == 8
                 and [r["step"] for r in r2["log"]] == [5, 6, 7, 8]
@@ -2479,7 +2525,7 @@ def train_faults(layers=2, batch=2, seq=256):
             raise AssertionError(f"train resume: {r1} then {r2}")
 
         d = os.path.join(root, "rollback")
-        t3 = trainer(d, total_steps=4, ckpt_every=2)
+        t3 = trainer(d, total_steps=3, ckpt_every=2)
         real, poisoned = t3.train_step, []
 
         def evil_step(p, o, b, s):
@@ -2491,12 +2537,12 @@ def train_faults(layers=2, batch=2, seq=256):
 
         t3.train_step = evil_step
         r3 = t3.run()
-        if not (r3["final_step"] == 4 and np.isfinite(r3["final_loss"])
+        if not (r3["final_step"] == 3 and np.isfinite(r3["final_loss"])
                 and len(poisoned) == 1):
             raise AssertionError(f"train rollback: {r3}")
 
         d = os.path.join(root, "preempt")
-        r4 = trainer(d, total_steps=8, ckpt_every=4, max_seconds=1e-9).run()
+        r4 = trainer(d, total_steps=8, ckpt_every=100, max_seconds=1e-9).run()
         if not (r4["final_step"] == 1 and ckpt.latest_step(d) == 1):
             raise AssertionError(f"train preemption: {r4}")
     finally:
@@ -2608,6 +2654,356 @@ def train_phase(root):
     return out, {"train_example": counts}
 
 
+# -- phase 11: the remaining mixers at full width ------------------------------
+
+# The reference's ``param_count`` of each served configuration (held equal
+# to the port's for every architecture by ``tests/test_torch_configs.py``;
+# deepseek-v3's 4-layer cut checked against the reference's on the CPU).
+MIXER_PARAMS = {"recurrentgemma-2b": 2_894_574_080,
+                "mamba2-2.7b": 2_831_296_000,
+                "deepseek-v3-671b": 15_111_101_440,
+                "llama-3.2-vision-11b": 9_775_190_024}
+VIS_GATE = 0.5  # every cross layer's attn_gate: tanh(0) would add nothing
+
+
+def mixer_cfgs():
+    """The four phase-11 configurations at full width: three at their
+    published depth, deepseek-v3 on its 3 dense-head layers and 1 MoE
+    layer (of 61; MTP off, as published for serving)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    deepseek = get_config("deepseek-v3-671b")
+    return {"recurrentgemma-2b": get_config("recurrentgemma-2b"),
+            "mamba2-2.7b": get_config("mamba2-2.7b"),
+            "deepseek-v3-671b": dataclasses.replace(deepseek, n_layers=4),
+            "llama-3.2-vision-11b": get_config("llama-3.2-vision-11b")}
+
+
+def _vis(cfg, batch, dev, dtype, seed=3):
+    import torch
+
+    if cfg.frontend != "vision_patches":
+        return {}
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"vis_embeds": torch.randn((batch, cfg.n_vis_tokens, cfg.d_model),
+                                      generator=g, device=dev).to(dtype)}
+
+
+def _set_gates(layers, value):
+    """Every cross layer's ``attn_gate`` among ``layers`` set to ``value``."""
+    for lp in layers:
+        if "attn_gate" in lp:
+            lp["attn_gate"].fill_(value)
+
+
+def mixer_consistency(name, cfg, batch, s, split=8, n=8):
+    """float32 (TF32 off) at full width on the cut depth ``cfg``, the
+    reference's ``tests/test_archs.py`` check that prefill(S) +
+    decode(token S) equals a full forward over S + 1 tokens:
+
+    - every layer, teacher-forced (its prefill over the forward's own
+      input, then its decode step at S, against its full-sequence output
+      at S): relative max error < 1e-3;
+    - the logits end to end: printed from the reference's init, held
+      < 1e-3 once the GQA attention is rescaled (``scale_attention``; MLA
+      and the recurrent mixers are left as they are).  The reference's
+      init (``wq`` std 1/sqrt(n_heads)) makes the softmaxes near one-hot,
+      and near-ties amplify float32 rounding through the stack;
+    - greedy decoding (``n`` tokens, rescaled weights) after the prompt is
+      the same whether the prompt went through prefill whole or its last
+      ``split`` tokens through decode steps."""
+    import numpy as np
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = materialize(torch.Generator(device=dev).manual_seed(1),
+                         M.abstract_params(cfg), dtype_override=torch.float32)
+    _set_gates(params["blocks"].values(), VIS_GATE)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (batch, s + 1), dtype=np.int32)).to(dev)
+    extra = _vis(cfg, batch, dev, torch.float32)
+
+    def fresh():
+        return materialize(None, M.abstract_cache(cfg, batch, s + n + 1),
+                           dtype_override=torch.float32, device=dev)
+
+    def end_to_end():
+        _, cache = M.prefill(params, {"tokens": toks[:, :s], **extra}, cfg,
+                             fresh())
+        got, _ = M.decode_step(params, toks[:, s:], cache, s + 1, cfg)
+        del cache
+        x, _ = M.forward(params, {"tokens": toks, **extra}, cfg)
+        return _rel_max(got, M._logits(params, L.rmsnorm(
+            params["final_norm"], x[:, -1:]), cfg)[:, 0])
+
+    def greedy(first):
+        logits, cache = M.prefill(params, {"tokens": toks[:, :first], **extra},
+                                  cfg, fresh())
+        for i in range(first, s):  # the rest of the prompt, teacher-forced
+            logits, cache = M.decode_step(params, toks[:, i : i + 1], cache,
+                                          i + 1, cfg)
+        out = []
+        for i in range(n):
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+            out.append(tok)
+            logits, cache = M.decode_step(params, tok, cache, s + i + 1, cfg)
+        return torch.cat(out, dim=1).cpu()
+
+    with torch.inference_mode():
+        x = M._embed_in(params, {"tokens": toks}, cfg)
+        pos = torch.arange(s + 1, device=dev).expand(batch, s + 1)
+        layer_rel = []
+        for i, (t, c) in enumerate(B.layer_kinds(cfg)):
+            lp = params["blocks"][str(i)]
+            kw = extra if t == "cross" else {}
+            y, _ = B.layer_apply(lp, x, t, c, cfg, positions=pos, **kw)
+            cache = materialize(None, B.cache_abstract(cfg, t, batch, s + 1),
+                                dtype_override=torch.float32, device=dev)
+            _, cache = B.layer_prefill(lp, x[:, :s], t, c, cfg,
+                                       positions=pos[:, :s], cache=cache, **kw)
+            yd, _ = B.layer_decode(lp, x[:, s:], t, c, cfg, cache=cache,
+                                   cache_len=s + 1, positions=pos[:, s:])
+            layer_rel.append(_rel_max(yd, y[:, s:]))
+            x = y
+        del x, y, cache
+        raw = end_to_end()
+        scale_attention(params, cfg)
+        scaled = end_to_end()
+        whole, parts = greedy(s), greedy(s - split)
+    rec = {"arch": name, "n_layers": cfg.n_layers, "batch": batch, "s": s,
+           "layer_rel": layer_rel, "e2e_rel": raw, "scaled_e2e_rel": scaled,
+           "split": split, "greedy_equal": bool(torch.equal(whole, parts)),
+           "tokens": whole[0].tolist(), "wall_s": time.perf_counter() - t0}
+    print(f"mixers {name} f32, {cfg.n_layers} layers at full width: "
+          f"prefill({s}) + decode vs forward({s + 1}), batch {batch}: every "
+          f"layer (teacher-forced) max relative error {max(layer_rel):.3e}, "
+          f"logits {raw:.3e} (printed), attention rescaled {scaled:.3e} "
+          f"(held < 1e-3 with every layer); greedy {n} tokens with the "
+          f"prompt's last {split} through decode "
+          f"{'equal' if rec['greedy_equal'] else 'DIFFERENT'}; "
+          f"{rec['wall_s']:.1f} s")
+    if not (max(layer_rel) < 1e-3 and scaled < 1e-3 and rec["greedy_equal"]):
+        raise AssertionError(f"mixers {name}: prefill + decode != forward {rec}")
+    del params
+    return rec
+
+
+def moe_layer_consistency(cfg, batch=1, s=128):
+    """deepseek-v3's MoE layer (MLA + 256 experts, top-8, 1 shared) alone at
+    full width in float32, capacity factor 64 (no token dropped, as in the
+    reference's test): ``layer_prefill`` + ``layer_decode`` against
+    ``layer_apply`` at position S (< 1e-3)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models.params import materialize
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=64.0))
+    lp = materialize(torch.Generator(device=dev).manual_seed(2),
+                     B.layer_abstract(cfg, "mla", "moe"),
+                     dtype_override=torch.float32)
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((batch, s + 1, cfg.d_model), generator=g, device=dev)
+    pos = torch.arange(s + 1, device=dev).expand(batch, s + 1)
+    with torch.inference_mode():
+        y, aux = B.layer_apply(lp, x, "mla", "moe", cfg, positions=pos)
+        cache = materialize(None, B.cache_abstract(cfg, "mla", batch, s + 1),
+                            dtype_override=torch.float32, device=dev)
+        _, cache = B.layer_prefill(lp, x[:, :s], "mla", "moe", cfg,
+                                   positions=pos[:, :s], cache=cache)
+        yd, _ = B.layer_decode(lp, x[:, s:], "mla", "moe", cfg, cache=cache,
+                               cache_len=s + 1, positions=pos[:, s:])
+        err = _rel_max(yd, y[:, s:])
+    rec = {"batch": batch, "s": s, "rel": err, "aux": float(aux),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "wall_s": time.perf_counter() - t0}
+    print(f"mixers deepseek-v3-671b MoE layer f32 (256 experts, capacity "
+          f"factor 64): prefill({s}) + decode vs apply({s + 1}) max relative "
+          f"error {err:.3e} (held < 1e-3), aux {rec['aux']:.4f}; "
+          f"{rec['wall_s']:.1f} s")
+    if not err < 1e-3:
+        raise AssertionError(f"mixers MoE layer: prefill + decode != apply {rec}")
+    del lp
+    return rec
+
+
+def mixer_card_vs_cpu(name, cfg, temporal, channel, batch=1, s=12):
+    """One layer of ``(temporal, channel)`` at full width in float32 (TF32
+    off) on the card and on the CPU from the same weights: ``layer_apply``,
+    ``layer_prefill`` (output and cache) and ``layer_decode`` within 1e-4
+    (relative max error).  The weights go to the host once the card is
+    done, so the largest layer is held once per side."""
+    import torch
+    from repro_torch.models import blocks as B
+    from repro_torch.models.params import materialize, tree_map
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lp = materialize(torch.Generator(device=dev).manual_seed(5),
+                     B.layer_abstract(cfg, temporal, channel),
+                     dtype_override=torch.float32)
+    _set_gates([lp], VIS_GATE)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((batch, s + 1, cfg.d_model), generator=g, device=dev)
+    extra = _vis(cfg, batch, dev, torch.float32) if temporal == "cross" else {}
+
+    def run(p, d):
+        xx = x.to(d)
+        pos = torch.arange(s + 1, device=d).expand(batch, s + 1)
+        kw = {k: v.to(d) for k, v in extra.items()}
+        with torch.inference_mode():
+            y, _ = B.layer_apply(p, xx, temporal, channel, cfg, positions=pos,
+                                 **kw)
+            cache = materialize(None, B.cache_abstract(cfg, temporal, batch,
+                                                       s + 1),
+                                dtype_override=torch.float32, device=d)
+            yp, cache = B.layer_prefill(p, xx[:, :s], temporal, channel, cfg,
+                                        positions=pos[:, :s], cache=cache, **kw)
+            yd, cache = B.layer_decode(p, xx[:, s:], temporal, channel, cfg,
+                                       cache=cache, cache_len=s + 1,
+                                       positions=pos[:, s:])
+        return [t.cpu() for t in [y, yp, yd] + [cache[k] for k in sorted(cache)]]
+
+    card = run(lp, dev)
+    lp = tree_map(lambda t: t.cpu(), lp)
+    torch.cuda.empty_cache()
+    err = max(_rel_max(a, b) for a, b in zip(card, run(lp, "cpu")))
+    rec = {"arch": name, "kind": [temporal, channel], "batch": batch, "s": s,
+           "rel": err, "wall_s": time.perf_counter() - t0}
+    print(f"mixers {name} {temporal}+{channel} layer f32 card vs CPU, "
+          f"{batch} x {s} tokens: max relative error {err:.3e} (held < "
+          f"1e-4); {rec['wall_s']:.1f} s")
+    if not err < 1e-4:
+        raise AssertionError(f"mixers {name} {temporal}: card != CPU {rec}")
+    return rec
+
+
+def moe_card_vs_cpu(cfg, batch=1, s=8):
+    """deepseek-v3's MoE (256 experts, top-8, 1 shared) at full width in
+    float32 (TF32 off), card against CPU from the same weights.  The
+    router's float32 product rounds otherwise on the two devices, so a
+    near-tie can pick another expert: the router probabilities are held
+    within 1e-5, the share of tokens routed otherwise is reported, and the
+    experts (routed and shared) are held within 1e-4 on the card's routing
+    fed to both sides; the whole layer and its aux loss too when no token
+    is routed otherwise."""
+    import torch
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.params import materialize, tree_map
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p = materialize(torch.Generator(device=dev).manual_seed(7),
+                    MoE.moe_abstract(cfg), dtype_override=torch.float32)
+    x = torch.randn((batch, s, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(8))
+
+    def run(pp, xx, fed=None):
+        with torch.inference_mode():
+            xg = MoE.group(xx, cfg)
+            probs = MoE.router_probs(pp, xg)
+            d, c = MoE.route(probs, cfg.moe.top_k,
+                             MoE._capacity(xg.shape[1], cfg), torch.float32)
+            d_in, c_in = (d, c) if fed is None else (
+                fed[0].to(xx.device), fed[1].to(xx.device))
+            out = MoE.experts(pp, xg, d_in, c_in, cfg)
+            y, aux = MoE.moe_layer(pp, xx, cfg)
+        return [t.cpu() for t in (probs, d, c, out, y, aux)]
+
+    card = run(p, x)
+    p = tree_map(lambda t: t.cpu(), p)
+    torch.cuda.empty_cache()
+    cpu = run(p, x.cpu(), fed=card[1:3])
+    probs_rel = _rel_max(card[0], cpu[0])
+    flipped = (card[1] != cpu[1]).flatten(2).any(-1)
+    share = float(flipped.float().mean())
+    fed_rel = _rel_max(card[3], cpu[3])
+    whole = None if bool(flipped.any()) else max(
+        _rel_max(card[4], cpu[4]), abs(float(card[5]) - float(cpu[5]))
+        / abs(float(cpu[5])))
+    rec = {"batch": batch, "s": s, "probs_rel": probs_rel,
+           "flipped_share": share, "experts_fed_rel": fed_rel,
+           "layer_rel": whole, "wall_s": time.perf_counter() - t0}
+    print(f"mixers deepseek-v3-671b MoE f32 card vs CPU, {batch * s} tokens: "
+          f"router probabilities {probs_rel:.3e} (held < 1e-5), {share:.4f} "
+          f"of tokens routed otherwise (reported), experts on the card's "
+          f"routing {fed_rel:.3e} (held < 1e-4), whole layer and aux "
+          f"{'n/a (a token routed otherwise)' if whole is None else f'{whole:.3e}'}"
+          f" (held < 1e-4); {rec['wall_s']:.1f} s")
+    if not (probs_rel < 1e-5 and fed_rel < 1e-4
+            and (whole is None or whole < 1e-4)):
+        raise AssertionError(f"mixers MoE: card != CPU {rec}")
+    return rec
+
+
+def mixers_phase():
+    """Phase 11: recurrentgemma-2b, mamba2-2.7b, deepseek-v3 (4 layers) and
+    llama-3.2-vision-11b served at full width in bfloat16; the float32
+    consistency of one pattern period of each (deepseek: a dense-head layer
+    through the model, the MoE layer alone); one layer of each new kind on
+    the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the float32 checks")
+    t_phase = time.perf_counter()
+    cfgs = mixer_cfgs()
+    out = {"serve": [], "f32": [], "card_vs_cpu": []}
+    for name, batch, prompt, new in (("recurrentgemma-2b", 2, 2304, 16),
+                                     ("mamba2-2.7b", 2, 1000, 32),
+                                     ("deepseek-v3-671b", 2, 1024, 16),
+                                     ("llama-3.2-vision-11b", 2, 128, 16)):
+        rec = lm_serve(name, cfgs[name], batch, prompt, new, prompt + new,
+                       reps=3, attn_gate=VIS_GATE)
+        if rec["n_params"] != MIXER_PARAMS[name]:
+            raise AssertionError(f"mixers {name}: {rec['n_params']} parameters"
+                                 f" != the reference's {MIXER_PARAMS[name]}")
+        out["serve"].append(rec)
+
+    def period(name, **kw):
+        cfg = cfgs[name]
+        return dataclasses.replace(cfg, n_layers=len(cfg.pattern), **kw)
+
+    ds = cfgs["deepseek-v3-671b"]
+    dense = dataclasses.replace(ds, n_layers=1, moe=dataclasses.replace(
+        ds.moe, n_dense_layers=1))
+    for name, cfg, batch, s in (
+            ("recurrentgemma-2b", period("recurrentgemma-2b"), 1, 2100),
+            ("mamba2-2.7b", period("mamba2-2.7b"), 2, 1000),
+            ("deepseek-v3-671b", dense, 1, 1024),
+            ("llama-3.2-vision-11b", period("llama-3.2-vision-11b"), 2, 128)):
+        out["f32"].append(mixer_consistency(name, cfg, batch, s))
+    out["moe_f32"] = moe_layer_consistency(ds)
+    for name, temporal, channel in (
+            ("recurrentgemma-2b", "rglru", "mlp"),
+            ("mamba2-2.7b", "ssd", "none"),
+            ("deepseek-v3-671b", "mla", "dense_head"),
+            ("llama-3.2-vision-11b", "cross", "mlp")):
+        out["card_vs_cpu"].append(mixer_card_vs_cpu(name, cfgs[name],
+                                                    temporal, channel))
+    out["moe_card_vs_cpu"] = moe_card_vs_cpu(ds)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 11: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -2702,6 +3098,9 @@ def main() -> int:
     # counts through the bitmap kernel.
     train, train_paths = train_phase(root)
     by_path.update(train_paths)
+    # Phase 11: the remaining mixers (RG-LRU, SSD, MLA, MoE, cross) at
+    # full width; no kernel lies on their path.
+    mixers = mixers_phase()
     # Host phases of the T10I4D100K mine that no JobProfile row holds: the
     # ingest pass and the speculative C3 generated while C2 counts.
     from repro_torch.core.itemsets import apriori_gen_matrix
@@ -2731,7 +3130,7 @@ def main() -> int:
                        "out_of_core": {"mines": ooc_mines, "host": ooc_host},
                        "serve": {"runs": serve_runs, "cli_s": cli_s},
                        "hadoop": hadoop, "sharded": sharded, "lm": lm,
-                       "train": train,
+                       "train": train, "mixers": mixers,
                        "device": device,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -1,10 +1,8 @@
 """Architecture and shape configuration dataclasses (PyTorch port of the
 JAX package's ``configs/base.py``: the same fields and defaults).
 
-``param_count`` and ``active_param_count`` count the port's abstract tree;
-for an architecture with a mixer the port does not have yet (``moe``,
-``mla``, ``rglru``, ``ssd``, ``cross``), building that tree raises
-``NotImplementedError`` naming ROADMAP.md.
+``param_count`` and ``active_param_count`` count the port's abstract tree,
+one tree per layer; for all ten architectures they equal the reference's.
 """
 
 from __future__ import annotations
@@ -109,21 +107,30 @@ class ModelConfig:
         return count_params(abstract_params(self))
 
     def active_param_count(self) -> int:
-        """6·N_active·D convention for MoE rooflines."""
+        """6·N_active·D convention for MoE rooflines.  The reference
+        tests each ``experts`` leaf of a scanned layer at its stacked size
+        (n_super layers), so a scanned layer's router counts as routed
+        too; the port keeps that rule through ``stacked_layers``."""
         from repro_torch.models.model import abstract_params
         from repro_torch.models.params import count_params, tree_leaves
+        from repro_torch.models.transformer import stacked_layers
 
         tree = abstract_params(self)
         if self.moe is None:
             return count_params(tree)
+        stacked = {str(i): len(g) for g in stacked_layers(self) for i in g}
+        parts = [(1, v) for k, v in tree.items() if k != "blocks"]
+        parts += [(stacked.get(i, 1), v) for i, v in tree["blocks"].items()]
         total = 0
-        for leaf in tree_leaves(tree):
-            n = 1
-            for s in leaf.shape:
-                n *= s
-            if "experts" in leaf.axes and n > self.moe.n_experts * self.d_model:
-                n = n // self.moe.n_experts * self.moe.top_k  # routed experts
-            total += n
+        for depth, part in parts:
+            for leaf in tree_leaves(part):
+                n = 1
+                for s in leaf.shape:
+                    n *= s
+                if ("experts" in leaf.axes
+                        and depth * n > self.moe.n_experts * self.d_model):
+                    n = n // self.moe.n_experts * self.moe.top_k  # routed experts
+                total += n
         return total
 
 

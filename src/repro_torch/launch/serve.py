@@ -20,7 +20,11 @@ The LM path (batched generation with the ``ServeEngine``) is kept behind
   REPRO_LM=1 python -m repro_torch.launch.serve --lm --arch qwen2-1.5b
 
 On the card it serves the architecture's full config; with ``--device
-cpu`` its reduced one.
+cpu`` its reduced one.  Any of the ten architectures but the encoder-only
+hubert-xlarge; a vision config gets zero patch embeddings, as in the
+reference:
+
+  REPRO_LM=1 python -m repro_torch.launch.serve --lm --arch mamba2-2.7b
 """
 
 from __future__ import annotations
@@ -71,9 +75,15 @@ def _lm_main(argv) -> None:
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            dtype=np.int32)
 
+    vis = None
+    if cfg.frontend == "vision_patches":
+        vis = torch.zeros((args.batch, cfg.n_vis_tokens, cfg.d_model),
+                          dtype=torch.bfloat16, device=dev)
+
     t0 = time.time()
     out = engine.generate(prompts, max_new_tokens=args.new_tokens,
-                          temperature=args.temperature, rng=gen)
+                          temperature=args.temperature, rng=gen,
+                          vis_embeds=vis)
     dt = time.time() - t0
     print(f"generated {out.shape} in {dt:.2f}s "
           f"({args.batch * out.shape[1] / dt:.1f} tok/s)")

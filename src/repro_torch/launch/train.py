@@ -15,7 +15,9 @@ rollback, straggler flags.  ``--shape``'s global batch and sequence length
 are the defaults on the card (on the CPU: 4 x 128); a single card holds
 qwen2-1.5b's 4,096-token sequences only at a small ``--batch`` or with
 ``--microbatches``.  ``--multi-pod`` (the production mesh) waits for LM
-sharding and raises.  It prints the reference's JSON summary line.
+sharding and raises.  It prints the reference's JSON summary line.  Every
+architecture of ``configs`` trains; a vision config's batches carry zero
+patch embeddings (the stub frontend, as ``launch/serve.py --lm`` gives).
 """
 
 from __future__ import annotations
@@ -29,6 +31,19 @@ from repro_torch.core.runtime.engine import resolve_device
 from repro_torch.data.pipeline import SyntheticLM
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def with_zero_patches(iterator, cfg, batch: int):
+    """``iterator`` (a pipeline's, from a start step) with each batch given
+    zero bfloat16 ``vis_embeds`` (batch, n_vis_tokens, d_model)."""
+    import torch
+
+    def it(start_step: int = 0):
+        for b in iterator(start_step):
+            b["vis_embeds"] = torch.zeros(
+                (batch, cfg.n_vis_tokens, cfg.d_model), dtype=torch.bfloat16)
+            yield b
+    return it
 
 
 def main(argv=None) -> None:
@@ -71,7 +86,10 @@ def main(argv=None) -> None:
         ckpt_dir=args.ckpt_dir, microbatches=args.microbatches,
         compress_grads=args.compress_grads,
     )
-    trainer = Trainer(cfg, ocfg, tcfg, pipeline.iterator, device=dev)
+    data = pipeline.iterator
+    if cfg.frontend == "vision_patches":
+        data = with_zero_patches(data, cfg, batch)
+    trainer = Trainer(cfg, ocfg, tcfg, data, device=dev)
     summary = trainer.run()
     print(json.dumps({k: v for k, v in summary.items() if k != "log"}))
 

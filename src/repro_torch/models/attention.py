@@ -1,5 +1,5 @@
-"""Attention: GQA / MQA / sliding-window, with a memory-bounded chunked flash
-implementation (online softmax over KV blocks).  PyTorch port of the JAX
+"""Attention: GQA / MQA / sliding-window / cross / MLA, with a memory-bounded
+chunked flash implementation (online softmax over KV blocks).  PyTorch port of the JAX
 package's ``models/attention.py`` in plain torch ops and the reference's
 numerics: scores in float32 (``score_dtype``), the ``NEG_INF`` mask, the
 guard for fully masked rows, ``p`` cast to ``v``'s dtype before the PV
@@ -12,7 +12,10 @@ window slice) — upper-triangular blocks are never computed.  Within each
 (q-chunk, kv-slice) pair a Python loop over KV blocks (the reference's
 ``lax.scan``) keeps the score tile at (Qc, Kc) regardless of sequence length.
 
-Multi-head latent attention (MLA) waits for its slice (ROADMAP.md).
+Multi-head latent attention (MLA, DeepSeek-V3) runs its prefill in the
+absorbed form through ``flash_attention`` (one latent KV head, the latent as
+the value) and decodes against the latent cache; its decode scores are
+summed in the cache's dtype and cast to float32 after, as in the reference.
 """
 
 from __future__ import annotations
@@ -194,3 +197,103 @@ def gqa_project_qkv(params, x, kv_x=None, positions=None, cfg: ModelConfig = Non
 def gqa_output(params, attn_out):
     wo = params["wo"]
     return attn_out.reshape(*attn_out.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def mla_abstract(cfg: ModelConfig):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kr = m.q_lora_rank, m.kv_lora_rank
+    return {
+        "wq_a": spec((d, qr), ("fsdp", None)),
+        "q_norm": spec((qr,), (None,), dtype=torch.float32, init="ones"),
+        "wq_b": spec((qr, h, m.nope_head_dim + m.rope_head_dim), (None, "heads", None)),
+        "wkv_a": spec((d, kr + m.rope_head_dim), ("fsdp", None)),
+        "kv_norm": spec((kr,), (None,), dtype=torch.float32, init="ones"),
+        "wk_b": spec((kr, h, m.nope_head_dim), (None, "heads", None)),
+        "wv_b": spec((kr, h, m.v_head_dim), (None, "heads", None)),
+        "wo": spec((h, m.v_head_dim, d), ("heads", None, "fsdp")),
+    }
+
+
+def _norm(x, scale, eps=1e-6):
+    xf = x.float()
+    out = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps) * scale
+    return out.to(x.dtype)
+
+
+def mla_latent(params, x, positions, cfg: ModelConfig):
+    """Project to the compressed latent (what the KV cache stores)."""
+    m = cfg.mla
+    kv_a = x @ params["wkv_a"]
+    c_kv, k_rope = kv_a[..., : m.kv_lora_rank], kv_a[..., m.kv_lora_rank :]
+    c_kv = _norm(c_kv, params["kv_norm"])
+    k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+    return c_kv, k_rope
+
+
+def mla_queries(params, x, positions, cfg: ModelConfig):
+    m = cfg.mla
+    q_a = _norm(x @ params["wq_a"], params["q_norm"])
+    q = _matmul(q_a, params["wq_b"])
+    q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim :]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_output(params, o_lat):
+    """(B, S, H, kr) latent outputs through W_vb, then W_o."""
+    o = _einsum("...hr,rhv->...hv", o_lat, params["wv_b"])
+    return _einsum("...hv,hvd->...d", o, params["wo"])
+
+
+def mla_attention(params, x, positions, cfg: ModelConfig, q_chunk=1024, kv_chunk=1024):
+    """Prefill/train path: absorbed attention over the latent (no per-head KV).
+
+    Scores: q_nope·W_kbᵀ gives a query in latent space; rope part adds a
+    shared-key term. Attention then runs over (latent ⊕ rope-key) of width
+    kv_lora_rank + rope_head_dim — the MLA cache economy — and the output is
+    re-expanded through W_vb.
+    """
+    m = cfg.mla
+    c_kv, k_rope = mla_latent(params, x, positions, cfg)      # (B,S,kr), (B,S,rd)
+    q_nope, q_rope = mla_queries(params, x, positions, cfg)   # (B,S,H,*)
+    # Absorb W_kb into the query: q_lat (B,S,H,kr)
+    q_lat = torch.einsum("...hk,rhk->...hr", q_nope, params["wk_b"])
+    q_eff = torch.cat([q_lat, q_rope], dim=-1)
+    k_eff = torch.cat([c_kv, k_rope], dim=-1)[..., None, :]  # KV=1 head
+    scale_fix = (m.nope_head_dim + m.rope_head_dim) ** -0.5 / (
+        (m.kv_lora_rank + m.rope_head_dim) ** -0.5
+    )
+    o_lat = flash_attention(
+        q_eff * scale_fix, k_eff, c_kv[..., None, :],
+        causal=cfg.causal, q_chunk=q_chunk, kv_chunk=kv_chunk,
+    )  # (B,S,H,kr) — the value *is* the latent
+    return _mla_output(params, o_lat)
+
+
+def mla_decode(params, x, c_cache, krope_cache, cache_len, positions, cfg):
+    """Decode against the latent cache. x: (B,1,D).  The new token's latent
+    lands at cache_len - 1 in place."""
+    m = cfg.mla
+    c_new, kr_new = mla_latent(params, x, positions, cfg)
+    idx = cache_len - 1
+    c_cache[:, idx : idx + 1] = c_new.to(c_cache.dtype)
+    krope_cache[:, idx : idx + 1] = kr_new.to(krope_cache.dtype)
+    q_nope, q_rope = mla_queries(params, x, positions, cfg)
+    q_lat = torch.einsum("...hk,rhk->...hr", q_nope, params["wk_b"])
+    t = c_cache.shape[1]
+    # Summed in the promoted (cache) dtype, then cast: the reference's
+    # rounding point.
+    s = (
+        _einsum("bqhr,btr->bhqt", q_lat, c_cache)
+        + _einsum("bqhr,btr->bhqt", q_rope, krope_cache)
+    ).float() * ((m.nope_head_dim + m.rope_head_dim) ** -0.5)
+    valid = torch.arange(t, device=x.device) < cache_len
+    s = s.masked_fill(~valid, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqt,btr->bqhr", p.to(c_cache.dtype), c_cache)
+    return _mla_output(params, o_lat), c_cache, krope_cache

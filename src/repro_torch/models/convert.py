@@ -4,7 +4,8 @@
 tree as numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
 port's: the ``blocks`` subtree's ``head``/``scan``/``tail`` layout becomes
 one tree per layer, in ``blocks.layer_kinds`` order, with each ``scan``
-leaf's leading ``n_super`` axis unstacked back into layers.  Tied
+leaf's leading ``n_super`` axis unstacked back into layers (a stacked
+scalar, the cross layer's ``attn_gate``, into 0-d tensors).  Tied
 embeddings carry no ``lm_head`` on either side.  ``cache_from_reference``
 does the same for caches, and ``opt_state_from_reference`` for the
 optimizer state (``m``, ``v`` and, with compression, ``ef``: each a tree

@@ -1,9 +1,10 @@
 """User-facing model API: abstract params, forward, prefill, decode (PyTorch
 port of the JAX package's ``models/model.py``).
 
-Token LMs and the audio encoder (frame embeddings in) run through the dense
-layer kinds the port has; architectures with an unported mixer raise
-``NotImplementedError`` when their tree is built (ROADMAP.md).
+Works for every architecture of ``configs``: token LMs, the audio encoder
+(frame embeddings in, frame classes out) and the vision-text model
+(precomputed patch embeddings, ``batch["vis_embeds"]``, consumed by
+interleaved cross-attention layers).
 
 ``loss_fn`` is the reference's: mean next-token cross-entropy over
 ``seq_chunk`` slices of the sequence (labels < 0 masked), the MoE aux term

@@ -52,7 +52,10 @@ class ServeEngine:
         vis_embeds=None,
     ) -> np.ndarray:
         """``rng``: the ``torch.Generator`` (on ``device``) that sampling
-        draws from; default seeded 0, like the reference's ``PRNGKey(0)``."""
+        draws from; default seeded 0, like the reference's ``PRNGKey(0)``.
+        ``vis_embeds``: (B, n_vis_tokens, d_model) patch embeddings for a
+        vision config's cross layers (a tensor or an array, moved to the
+        engine's device as it is)."""
         b, s_prompt = prompts.shape
         if s_prompt + max_new_tokens > self.max_len:
             raise ValueError(f"prompt {s_prompt} + {max_new_tokens} new tokens "
@@ -65,7 +68,8 @@ class ServeEngine:
             batch = {"tokens": torch.as_tensor(np.asarray(prompts, np.int32),
                                                device=self.device)}
             if vis_embeds is not None:
-                batch["vis_embeds"] = vis_embeds
+                batch["vis_embeds"] = torch.as_tensor(vis_embeds,
+                                                      device=self.device)
             logits, cache = M.prefill(self.params, batch, self.cfg, cache)
 
             out = []

@@ -1,8 +1,8 @@
 """PyTorch port vs JAX package: the architecture registry and parameter
 counts.  Every config, reduced config and dry-run cell is the reference's;
-the port's abstract tree counts the reference's parameters for the dense
-architectures, and the others raise ``NotImplementedError`` naming
-ROADMAP.md until their mixers are ported."""
+for all ten architectures the port's abstract tree counts the reference's
+parameters (and active parameters) at full and reduced size, leaf by leaf
+at full size."""
 
 import dataclasses
 from collections import Counter
@@ -23,8 +23,6 @@ import repro_torch.configs as T  # noqa: E402
 from repro_torch.configs.base import LM_SHAPES  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.params import tree_leaves  # noqa: E402
-
-DENSE = ["qwen2-1.5b", "gemma2-2b", "phi3-medium-14b", "starcoder2-15b"]
 
 
 def _fields(cfg):
@@ -73,7 +71,7 @@ def test_shapes_and_cells_equal_reference():
         T.get_config("no-such-arch")
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", J.ARCHS)
 def test_param_count_equals_reference_at_full_width(arch):
     cfg = T.get_config(arch)
     assert cfg.param_count() == J.get_config(arch).param_count()
@@ -82,15 +80,29 @@ def test_param_count_equals_reference_at_full_width(arch):
     assert _port_leaves(cfg) == _ref_leaves(J.get_config(arch))
 
 
-@pytest.mark.parametrize("arch", ["hubert-xlarge"] + DENSE)
+@pytest.mark.parametrize("arch", J.ARCHS)
 def test_reduced_param_count_equals_reference(arch):
-    assert T.get_reduced(arch).param_count() == J.get_reduced(arch).param_count()
+    cfg, ref = T.get_reduced(arch), J.get_reduced(arch)
+    assert cfg.param_count() == ref.param_count()
+    assert cfg.active_param_count() == ref.active_param_count()
+    assert _port_leaves(cfg) == _ref_leaves(ref)
 
 
-@pytest.mark.parametrize("arch", sorted(set(J.ARCHS) - set(DENSE)
-                                        - {"hubert-xlarge"}))
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.get_config(arch).param_count()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.get_config(arch).active_param_count()
+def test_chip_smoke_mixer_counts_are_the_reference_s():
+    """``chip_smoke.py`` phase 11 holds each served model's parameter count
+    to ``MIXER_PARAMS``: the reference's ``param_count`` of the same
+    configuration (deepseek-v3 cut to 4 layers)."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    cfgs = smoke.mixer_cfgs()
+    assert sorted(cfgs) == sorted(smoke.MIXER_PARAMS)
+    for name, cfg in cfgs.items():
+        ref = dataclasses.replace(J.get_config(name), n_layers=cfg.n_layers)
+        assert _fields(cfg) == _fields(ref)
+        assert smoke.MIXER_PARAMS[name] == ref.param_count() == cfg.param_count()

@@ -743,3 +743,108 @@ def test_trainer_on_card_resumes(cuda, tmp_path):
     assert r1["final_step"] == 4 and r2["final_step"] == 8
     assert all(p.is_cuda and p.requires_grad for p in tree_leaves(t2.params))
     assert r2["final_loss"] < r1["log"][0]["loss"]
+
+
+def _to(tree, dev):
+    from repro_torch.models.params import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+@pytest.mark.parametrize("arch,layer", [
+    ("recurrentgemma-2b", 0),      # rglru
+    ("mamba2-2.7b", 0),            # ssd
+    ("deepseek-v3-671b", 0),       # mla
+    ("llama-3.2-vision-11b", 3),   # cross, attn_gate 0.5
+])
+def test_mixer_layer_on_card_matches_cpu(cuda, arch, layer):
+    """One reduced layer in float32 (TF32 off): ``layer_apply``,
+    ``layer_prefill`` (output and every cache leaf) and one
+    ``layer_decode`` step on the card, each within 1e-4 (relative max
+    error) of the CPU's."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import blocks as TB
+    from repro_torch.models.params import materialize
+
+    cfg = get_reduced(arch)
+    temporal, channel = TB.layer_kinds(cfg)[layer]
+    lp = materialize(torch.Generator().manual_seed(layer),
+                     TB.layer_abstract(cfg, temporal, channel),
+                     dtype_override=torch.float32)
+    if temporal == "cross":
+        lp["attn_gate"].fill_(0.5)  # zero-init: the layer would add nothing
+    rng = np.random.default_rng(layer)
+    b, s = 2, 45  # 45: no multiple of mamba2's chunk
+    x = torch.from_numpy(rng.standard_normal((b, s + 1, cfg.d_model),
+                                             dtype=np.float32))
+    vis = torch.from_numpy(rng.standard_normal(
+        (b, cfg.n_vis_tokens, cfg.d_model), dtype=np.float32))
+    pos = torch.arange(s + 1).expand(b, s + 1)
+
+    def run(dev):
+        p, xx, pp = _to(lp, dev), x.to(dev), pos.to(dev)
+        kw = {"vis_embeds": vis.to(dev)} if temporal == "cross" else {}
+        y, _ = TB.layer_apply(p, xx, temporal, channel, cfg, positions=pp, **kw)
+        cache = materialize(None, TB.cache_abstract(cfg, temporal, b, 64),
+                            dtype_override=torch.float32, device=dev)
+        yp, cache = TB.layer_prefill(p, xx[:, :s], temporal, channel, cfg,
+                                     positions=pp[:, :s], cache=cache, **kw)
+        yd, cache = TB.layer_decode(p, xx[:, s:], temporal, channel, cfg,
+                                    cache=cache, cache_len=s + 1,
+                                    positions=pp[:, s:])
+        return [t.cpu() for t in [y, yp, yd] + [cache[k] for k in sorted(cache)]]
+
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want, got = run("cpu"), run(cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        assert float((a - w).abs().max() / w.abs().max()) < 1e-4
+
+
+def test_moe_layer_on_card_matches_cpu(cuda):
+    """The reduced deepseek-v3 MoE layer in float32 (TF32 off): router
+    probabilities within 1e-5 of the CPU's; the routed experts and the
+    shared one within 1e-4 on the card's routing fed to both sides (a
+    near-tie may choose other experts on the two devices: the share of
+    tokens routed otherwise is printed); the whole layer and its aux loss
+    within 1e-4 where no token is routed otherwise."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import moe as TMoE
+    from repro_torch.models.params import materialize
+
+    cfg = get_reduced("deepseek-v3-671b")
+    p = materialize(torch.Generator().manual_seed(5),
+                    TMoE.moe_abstract(cfg), dtype_override=torch.float32)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (2, 40, cfg.d_model), dtype=np.float32))
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        sides = {}
+        for dev in ("cpu", cuda):
+            pp, xg = _to(p, dev), TMoE.group(x.to(dev), cfg)
+            probs = TMoE.router_probs(pp, xg)
+            d, c = TMoE.route(probs, cfg.moe.top_k,
+                              TMoE._capacity(xg.shape[1], cfg), torch.float32)
+            sides[str(dev)] = (pp, xg, probs, d, c)
+        pc, xc, probs_c, d_cpu, _ = sides["cpu"]
+        pg, xg, probs_g, d_card, c_card = sides[str(cuda)]
+        assert float((probs_g.cpu() - probs_c).abs().max()
+                     / probs_c.abs().max()) < 1e-5
+        flipped = (d_card.cpu() != d_cpu).flatten(2).any(-1)  # (G, S)
+        print(f"moe card vs cpu: {float(flipped.float().mean()):.4f} of "
+              "tokens routed otherwise")
+        fed = TMoE.experts(pc, xc, d_card.cpu(), c_card.cpu(), cfg)
+        got = TMoE.experts(pg, xg, d_card, c_card, cfg).cpu()
+        assert float((got - fed).abs().max() / fed.abs().max()) < 1e-4
+        if not bool(flipped.any()):
+            (yc, ac), (yg, ag) = (TMoE.moe_layer(pc, x, cfg),
+                                  TMoE.moe_layer(pg, x.to(cuda), cfg))
+            assert float((yg.cpu() - yc).abs().max() / yc.abs().max()) < 1e-4
+            assert abs(float(ag) - float(ac)) <= 1e-4 * abs(float(ac))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -54,9 +54,6 @@ from repro_torch.models.params import materialize, tree_leaves  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 
 DENSE = ["qwen2-1.5b", "gemma2-2b", "phi3-medium-14b", "starcoder2-15b"]
-UNPORTED = {"kimi-k2-1t-a32b": "moe", "deepseek-v3-671b": "mla",
-            "recurrentgemma-2b": "rglru", "mamba2-2.7b": "ssd",
-            "llama-3.2-vision-11b": "cross"}
 
 
 def rel(got, want) -> float:
@@ -482,16 +479,6 @@ def test_params_from_reference_loads_into_module():
         params["blocks"]["scan"]["0"]["attn"]["wq"][1])
     assert tree["embed"]["table"] is model.params["embed"]["table"]
     assert "lm_head" not in tree  # tied embeddings
-
-
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_mixers_raise(arch):
-    cfg = get_reduced(arch)
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]) as err:
-        TM.abstract_params(cfg)
-    assert "ROADMAP.md" in str(err.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cfg.param_count()
 
 
 def test_serve_engine_defaults_to_the_card():

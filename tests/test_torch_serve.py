@@ -428,10 +428,11 @@ def test_cli_columns_match_reference(monkeypatch):
 
 
 def test_cli_refuses_unported_paths(monkeypatch):
-    """``--lm`` is gated on ``REPRO_LM=1`` as in the reference, and refuses
-    an architecture whose mixer is not ported; ``--mesh`` serves through
-    ``ShardedRunner`` on the data mesh (a one-rank gloo group here) with
-    the reference CLI's per-query columns."""
+    """``--lm`` is gated on ``REPRO_LM=1`` as in the reference, and now
+    serves the architectures whose mixers it once refused (mamba2-2.7b's
+    SSD here; the others in ``test_torch_mixer_archs.py``); ``--mesh``
+    serves through ``ShardedRunner`` on the data mesh (a one-rank gloo
+    group here) with the reference CLI's per-query columns."""
     import torch.distributed as dist
 
     monkeypatch.delenv("REPRO_LM", raising=False)
@@ -439,8 +440,11 @@ def test_cli_refuses_unported_paths(monkeypatch):
         t_cli.main(["--lm", "--arch", "x"])
     assert gated.value.code == 0
     monkeypatch.setenv("REPRO_LM", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_cli.main(["--lm", "--arch", "mamba2-2.7b", "--device", "cpu"])
+    served = io.StringIO()
+    with contextlib.redirect_stdout(served):
+        t_cli.main(["--lm", "--arch", "mamba2-2.7b", "--device", "cpu",
+                    "--new-tokens", "4"])
+    assert served.getvalue().startswith("generated (4, 4) in ")
     monkeypatch.delenv("REPRO_LM")
     args = CLI_ARGS + ["--mesh"]
     monkeypatch.setattr(sys, "argv", ["repro.launch.serve"] + args)

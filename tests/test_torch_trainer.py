@@ -213,6 +213,20 @@ def test_launcher_runs_reduced_on_cpu(tmp_path):
     assert ckpt.latest_step(str(tmp_path)) == 3
 
 
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b", "kimi-k2-1t-a32b",
+                                  "recurrentgemma-2b", "mamba2-2.7b",
+                                  "llama-3.2-vision-11b"])
+def test_launcher_trains_every_mixer_arch_on_cpu(arch):
+    """MLA, MoE, RG-LRU, SSD and cross-attention train through the
+    launcher (the vision config on zero patch embeddings)."""
+    out = io.StringIO()
+    with redirect_stdout(out):
+        launch_train.main(["--arch", arch, "--device", "cpu", "--reduced",
+                           "--steps", "2", "--batch", "2", "--seq", "32"])
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    assert summary["final_step"] == 2 and np.isfinite(summary["final_loss"])
+
+
 def test_example_runs_on_cpu(tmp_path, monkeypatch):
     """``examples/train_lm_torch.py``: gated, then mine, train with
     snapshots, generate."""
