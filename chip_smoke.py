@@ -27,7 +27,9 @@ result line) when it fails:
    ladder (``device_loop=True``) through every store;
 4. the main path: ``FrequentItemsetMiner.mine`` on T10I4D100K (scale 1.0,
    min_support 0.01) and the BMS_WebView_2 twin (scale 1.0, min_support
-   0.002): SPC and the trimmed level ladder through all five stores, DPC
+   0.002): SPC (on T10I4D100K through ``packed_bitmap``, ``bitmap`` and
+   ``perfect_hash``; through all five on BMS_WebView_2) and the trimmed
+   level ladder through all five stores, DPC
    through ``packed_bitmap``, ``bitmap`` and ``perfect_hash``, and FPC
    through the same three on BMS_WebView_2 only (on T10I4D100K its first
    job would generate a ~2.7e9-row C4).  The kernel stores run at their
@@ -41,9 +43,9 @@ result line) when it fails:
 5. out-of-core mining: the same two workloads written to ``.dat`` files in a
    temporary directory (never inside the repository) and mined through
    ``ChunkedDatasetReader`` with SPC, every job streaming every chunk.
-   T10I4D100K at ceil(N/4) and ceil(N/64) transactions per chunk
-   through ``packed_bitmap`` and ``bitmap``, and at ceil(N/4) through
-   ``perfect_hash``; BMS_WebView_2 at ceil(N/4) through the two kernel
+   T10I4D100K at ceil(N/4) transactions per chunk through
+   ``packed_bitmap``, ``bitmap`` and ``perfect_hash``; BMS_WebView_2 at
+   ceil(N/4) through the two kernel
    stores.  Each mine's itemsets AND supports must equal the phase-4
    ``perfect_hash`` SPC mine's, every level row must have streamed every
    chunk, no bitmap count may take the pad copy, and each kernel's launches
@@ -164,10 +166,25 @@ result line) when it fails:
    end to end with the GQA attention rescaled as in phase 9 (< 1e-3; from
    the reference's init printed), and greedy tokens independent of how
    the prompt is split between prefill and decode; (c) one layer of
-   each new kind (rglru, ssd, mla, cross, and the MoE) in float32 on a few
-   tokens on the card against the CPU (< 1e-4; the MoE's experts on the
-   card's routing fed to both sides, the share of tokens routed otherwise
-   printed).  No kernel lies on this path.
+   each new attention and recurrent kind (rglru, ssd, mla, cross) in
+   float32 on a few tokens on the card against the CPU (< 1e-4; the MoE's
+   card-vs-CPU check, which copied 45 GB of float32 experts to the host,
+   was cut for phase 12's time).  No kernel lies on this path;
+12. the LM on a ``data x model`` mesh of two gloo ranks sharing the card
+   (each rank this script in worker mode, ``--phase12-worker``; NCCL
+   refuses two ranks on one card), held to the single-rank port on the
+   card: (a) qwen2-1.5b at its full published config on (1, 2) (heads,
+   kv heads, ``mlp`` and vocab split in two), float32 with the attention
+   rescaled, batch 2, a 64-token prompt: prefill logits (< 1e-3) and 8
+   greedy tokens (equal) through ``ServeEngine(mesh=, rules=)``; then in
+   bfloat16, timed: one-token generate and decode ms a token (medians of
+   3), each rank's peak memory, and one decode step's collectives
+   (``CommDebugMode``) and bytes; (b) full width cut to 2 layers, float32,
+   the attention rescaled, B 2 x S 256, on (2, 1) (FSDP + DP) and (1, 2)
+   (TP): the loss and every gradient (each leaf ||dg|| / ||g||) within
+   1e-3 of the single rank's; one ``Trainer`` step on (2, 1) and its
+   snapshot, resumed onto (1, 2) through ``elastic.resume`` bit for bit.
+   No kernel lies on this path.
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -629,6 +646,11 @@ def main_path(workloads):
         for path, options, stores in runs:
             if path == "fpc" and name == "T10I4D100K":
                 continue
+            if path == "spc" and name == "T10I4D100K":
+                # the speculative C3 takes ~10 s a mine: the two array
+                # stores were cut for phase 12's time (the ladder and
+                # BMS_WebView_2's SPC still run them)
+                stores = STORES[:3]
             for store in stores:
                 with WaveLog() as waves:
                     reset_launches()
@@ -704,10 +726,11 @@ def out_of_core(workloads, bases):
     from repro_torch.kernels.support_count import (
         launches, pad_copies, reset_launches)
 
-    # T10I4D100K at N/4 and N/64 (N/16 was cut for phase 11's time; the
-    # card tests stream 100-, 333- and 5,000-row chunks).
-    plans = {"T10I4D100K": [(parts, store) for parts in (4, 64)
-                            for store in KERNEL_OF] + [(4, "perfect_hash")],
+    # T10I4D100K at N/4 through the kernel stores and perfect_hash (N/16
+    # was cut for phase 11's time, N/64 for phase 12's; the card tests
+    # stream 100-, 333- and 5,000-row chunks).
+    plans = {"T10I4D100K": [(4, store) for store in KERNEL_OF]
+                           + [(4, "perfect_hash")],
              "BMS_WebView_2": [(4, store) for store in KERNEL_OF]}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ooc_")
     mines, host = [], {}
@@ -2892,65 +2915,6 @@ def mixer_card_vs_cpu(name, cfg, temporal, channel, batch=1, s=12):
     return rec
 
 
-def moe_card_vs_cpu(cfg, batch=1, s=8):
-    """deepseek-v3's MoE (256 experts, top-8, 1 shared) at full width in
-    float32 (TF32 off), card against CPU from the same weights.  The
-    router's float32 product rounds otherwise on the two devices, so a
-    near-tie can pick another expert: the router probabilities are held
-    within 1e-5, the share of tokens routed otherwise is reported, and the
-    experts (routed and shared) are held within 1e-4 on the card's routing
-    fed to both sides; the whole layer and its aux loss too when no token
-    is routed otherwise."""
-    import torch
-    from repro_torch.models import moe as MoE
-    from repro_torch.models.params import materialize, tree_map
-
-    dev = torch.device("cuda")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    p = materialize(torch.Generator(device=dev).manual_seed(7),
-                    MoE.moe_abstract(cfg), dtype_override=torch.float32)
-    x = torch.randn((batch, s, cfg.d_model), device=dev,
-                    generator=torch.Generator(device=dev).manual_seed(8))
-
-    def run(pp, xx, fed=None):
-        with torch.inference_mode():
-            xg = MoE.group(xx, cfg)
-            probs = MoE.router_probs(pp, xg)
-            d, c = MoE.route(probs, cfg.moe.top_k,
-                             MoE._capacity(xg.shape[1], cfg), torch.float32)
-            d_in, c_in = (d, c) if fed is None else (
-                fed[0].to(xx.device), fed[1].to(xx.device))
-            out = MoE.experts(pp, xg, d_in, c_in, cfg)
-            y, aux = MoE.moe_layer(pp, xx, cfg)
-        return [t.cpu() for t in (probs, d, c, out, y, aux)]
-
-    card = run(p, x)
-    p = tree_map(lambda t: t.cpu(), p)
-    torch.cuda.empty_cache()
-    cpu = run(p, x.cpu(), fed=card[1:3])
-    probs_rel = _rel_max(card[0], cpu[0])
-    flipped = (card[1] != cpu[1]).flatten(2).any(-1)
-    share = float(flipped.float().mean())
-    fed_rel = _rel_max(card[3], cpu[3])
-    whole = None if bool(flipped.any()) else max(
-        _rel_max(card[4], cpu[4]), abs(float(card[5]) - float(cpu[5]))
-        / abs(float(cpu[5])))
-    rec = {"batch": batch, "s": s, "probs_rel": probs_rel,
-           "flipped_share": share, "experts_fed_rel": fed_rel,
-           "layer_rel": whole, "wall_s": time.perf_counter() - t0}
-    print(f"mixers deepseek-v3-671b MoE f32 card vs CPU, {batch * s} tokens: "
-          f"router probabilities {probs_rel:.3e} (held < 1e-5), {share:.4f} "
-          f"of tokens routed otherwise (reported), experts on the card's "
-          f"routing {fed_rel:.3e} (held < 1e-4), whole layer and aux "
-          f"{'n/a (a token routed otherwise)' if whole is None else f'{whole:.3e}'}"
-          f" (held < 1e-4); {rec['wall_s']:.1f} s")
-    if not (probs_rel < 1e-5 and fed_rel < 1e-4
-            and (whole is None or whole < 1e-4)):
-        raise AssertionError(f"mixers MoE: card != CPU {rec}")
-    return rec
-
-
 def mixers_phase():
     """Phase 11: recurrentgemma-2b, mamba2-2.7b, deepseek-v3 (4 layers) and
     llama-3.2-vision-11b served at full width in bfloat16; the float32
@@ -2998,9 +2962,364 @@ def mixers_phase():
             ("llama-3.2-vision-11b", "cross", "mlp")):
         out["card_vs_cpu"].append(mixer_card_vs_cpu(name, cfgs[name],
                                                     temporal, channel))
-    out["moe_card_vs_cpu"] = moe_card_vs_cpu(ds)
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 11: {out['wall_s']:.1f} s")
+    return out
+
+
+# -- phase 12: the LM on a data x model mesh of two ranks ----------------------
+
+P12_PROMPT, P12_NEW, P12_BATCH = 64, 8, 2
+P12_TRAIN = (2, 2, 256)  # (layers, batch, seq) of the training check
+
+
+def p12_serve_inputs(cfg):
+    import numpy as np
+
+    return np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (P12_BATCH, P12_PROMPT), dtype=np.int32)
+
+
+def p12_params(cfg, dtype=None):
+    """qwen2-1.5b's parameters on the card from seed 0 (every rank and the
+    single-rank reference draw the same), the attention rescaled."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize
+
+    dev = torch.device("cuda")
+    params = materialize(torch.Generator(device=dev).manual_seed(0),
+                         M.abstract_params(cfg), dtype_override=dtype)
+    with torch.no_grad():
+        scale_attention(params, cfg)
+    return params
+
+
+def p12_train_inputs(cfg):
+    import torch
+    from repro_torch.data.pipeline import SyntheticLM
+
+    _, batch, seq = P12_TRAIN
+    return {k: v.cuda() for k, v in SyntheticLM(
+        cfg.vocab_size, batch, seq, seed=0).batch_at(0).items()}
+
+
+def p12_train_params(cfg):
+    """The training check's float32 parameters from seed 0, the attention
+    rescaled as phase 10 (b) holds them (from the reference's init the
+    near one-hot softmaxes amplify float32 rounding)."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize
+
+    params = materialize(torch.Generator(device="cuda").manual_seed(0),
+                         M.abstract_params(cfg), dtype_override=torch.float32)
+    with torch.no_grad():
+        scale_attention(params, cfg)
+    return params
+
+
+def p12_train_cfg():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config("qwen2-1.5b"),
+                               n_layers=P12_TRAIN[0])
+
+
+def p12_prefill(params, cfg, prompts, mesh=None, rules=None):
+    """Last-position prefill logits (B, V), whole, float32 cache."""
+    import contextlib
+
+    import torch
+    from repro_torch.distributed.ctx import use_sharding, whole
+    from repro_torch.models import model as M
+    from repro_torch.models.params import materialize, place, shardings
+
+    abstract = M.abstract_cache(cfg, prompts.shape[0], prompts.shape[1])
+    cache = materialize(None, abstract, dtype_override=torch.float32,
+                        device="cuda")
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        cache = place(cache, mesh, shardings(abstract, mesh, rules.rules))
+        ctx = use_sharding(mesh, rules)
+    tokens = torch.as_tensor(prompts, device="cuda")
+    with torch.no_grad(), ctx:
+        logits, _ = M.prefill(params, {"tokens": tokens}, cfg, cache)
+        return whole(logits)
+
+
+def comm_bytes_mode():
+    """A ``CommDebugMode`` that also sums the bytes of every collective's
+    tensor inputs (what this rank sends): it lets DTensor run first, as
+    ``CommDebugMode`` does, and reads the ``_c10d_functional`` ops issued."""
+    import torch
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class CommBytes(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if (not isinstance(func, torch._ops.HigherOrderOperator)
+                    and not any(issubclass(t, DTensor) for t in types)
+                    and func._schema.name.startswith("_c10d_functional::")
+                    and not any(w in func._schema.name
+                                for w in ("wait", "wrap"))):
+                self.bytes += sum(a.numel() * a.element_size() for a in args
+                                  if isinstance(a, torch.Tensor))
+            return super().__torch_dispatch__(func, types, args, kwargs)
+
+    return CommBytes()
+
+
+def phase12_worker(spec_path: str) -> int:
+    """One rank of phase 12's two-rank gloo world on the one card."""
+    import numpy as np
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    from repro_torch.distributed import ctx
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    ctx.initialize_multihost(device="cuda", backend="gloo", timeout=600)
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.distributed import elastic
+    from repro_torch.distributed.ctx import use_sharding, whole
+    from repro_torch.distributed.sharding import default_rules
+    from repro_torch.launch.mesh import mesh_of_ranks
+    from repro_torch.launch.multihost import exit_rank
+    from repro_torch.models import model as M
+    from repro_torch.models.params import (materialize, place, shardings,
+                                           tree_leaves)
+    from repro_torch.serve import ServeEngine
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import opt_abstract_with_ef
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = ctx.process_index()
+    rules = default_rules()
+    meshes = {s: mesh_of_ranks([0, 1], s, ("data", "model"), "cuda")
+              for s in ((1, 2), (2, 1))}
+    ref = torch.load(spec["ref"], map_location="cuda", weights_only=False)
+    rec = {"rank": rank}
+
+    # (a) serving at the full config on the (1, 2) mesh: float32, then bf16
+    cfg = get_config("qwen2-1.5b")
+    prompts = p12_serve_inputs(cfg)
+    mesh = meshes[(1, 2)]
+    t0 = time.perf_counter()
+    eng = ServeEngine(cfg, p12_params(cfg, torch.float32), max_len=P12_PROMPT
+                      + P12_NEW, mesh=mesh, rules=rules, device="cuda")
+    rec["serve_f32_place_s"] = time.perf_counter() - t0
+    logits = p12_prefill(eng.params, cfg, prompts, mesh, rules)
+    rec["prefill_rel"] = _rel_max(logits, ref["logits"])
+    rec["greedy_equal"] = bool(np.array_equal(
+        eng.generate(prompts, P12_NEW), ref["tokens"]))
+    del eng, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(cfg, p12_params(cfg), max_len=P12_PROMPT + P12_NEW,
+                      mesh=mesh, rules=rules, device="cuda")
+    eng.generate(prompts, 2)  # warm-up
+    torch.cuda.synchronize()
+    ones, fulls = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        eng.generate(prompts, 1)
+        ones.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        eng.generate(prompts, P12_NEW)
+        fulls.append((time.perf_counter() - t0) * 1e3)
+    one, full = sorted(ones)[1], sorted(fulls)[1]
+    rec.update(one_token_generate_ms=one, one_token_generate_ms_all=ones,
+               generate_ms=full, generate_ms_all=fulls,
+               decode_ms_per_token=(full - one) / (P12_NEW - 1),
+               serve_peak_bytes=torch.cuda.max_memory_allocated())
+    # one decode step's collectives
+    abstract = M.abstract_cache(cfg, P12_BATCH, P12_PROMPT + 1)
+    with torch.no_grad(), use_sharding(mesh, rules):
+        cache = place(materialize(None, abstract, device="cuda"), mesh,
+                      shardings(abstract, mesh, rules.rules))
+        tokens = torch.as_tensor(prompts, device="cuda")
+        _, cache = M.prefill(eng.params, {"tokens": tokens}, cfg, cache)
+        with comm_bytes_mode() as comm:
+            M.decode_step(eng.params, tokens[:, -1:], cache, P12_PROMPT + 1,
+                          cfg)
+            torch.cuda.synchronize()
+    rec["decode_collectives"] = {str(k): v for k, v in
+                                 comm.get_comm_counts().items()}
+    rec["decode_collectives_total"] = comm.get_total_counts()
+    rec["decode_collective_bytes"] = comm.bytes
+    del eng, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) training at full width cut to 2 layers, float32, on both meshes
+    tcfg = p12_train_cfg()
+    batch = p12_train_inputs(tcfg)
+    tabs = M.abstract_params(tcfg)
+    plain = p12_train_params(tcfg)
+    for shape, m in meshes.items():
+        key = "x".join(map(str, shape))
+        params = M.trainable(place(plain, m, shardings(tabs, m, rules.rules)))
+        t0 = time.perf_counter()
+        with use_sharding(m, rules):
+            loss, _ = M.loss_fn(params, batch, tcfg)
+            grads = torch.autograd.grad(loss, tree_leaves(params),
+                                        allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(tree_leaves(params), grads)]
+            whole_grads = [whole(g) for g in grads]
+        torch.cuda.synchronize()
+        rec[f"train_{key}_s"] = time.perf_counter() - t0
+        rec[f"loss_{key}_rel"] = _rel_max(whole(loss)[None],
+                                          ref["loss"][None])
+        rec[f"grads_{key}_rel"] = max(
+            _rel(g, w) for g, w in zip(whole_grads, ref["grads"])
+            if float(w.abs().max()) > 0)
+        del params, grads, whole_grads, loss
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    # one Trainer step on (2, 1), a snapshot, resumed onto (1, 2)
+    ocfg = OptConfig(lr=1e-4, total_steps=1, warmup_steps=1)
+    t0 = time.perf_counter()
+    trainer = Trainer(tcfg, ocfg, TrainerConfig(
+        total_steps=1, ckpt_every=1, ckpt_dir=spec["ckpt"]),
+        lambda start: itertools.repeat({k: v.cpu() for k, v in
+                                        batch.items()}),
+        mesh=meshes[(2, 1)], rules=rules, device="cuda")
+    out = trainer.run()
+    rec["trainer_step_and_save_s"] = time.perf_counter() - t0
+    rec["trainer_loss"] = out["final_loss"]
+    state_abs = {"params": tabs, "opt": opt_abstract_with_ef(tabs, ocfg)}
+    t0 = time.perf_counter()
+    tree, step, _ = elastic.resume(spec["ckpt"], state_abs,
+                                   mesh=meshes[(1, 2)], rules=rules,
+                                   device="cuda")
+    rec["resume_s"] = time.perf_counter() - t0
+    rec["snapshot_bytes"] = sum(
+        os.path.getsize(os.path.join(d, f)) for d, _, fs in
+        os.walk(spec["ckpt"]) for f in fs)
+    def bits(t):  # the whole tensor's bytes
+        return whole(t).detach().contiguous().view(-1).view(torch.uint8)
+
+    rec["resume_equal"] = step == 1 and all(
+        tuple(a.device_mesh.shape) == (1, 2) and torch.equal(bits(a), bits(b))
+        for a, b in zip(tree_leaves(tree), tree_leaves(trainer._state_tree())))
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    with open(f"{spec['out']}.{rank}", "w") as f:
+        json.dump(rec, f)
+    exit_rank()
+
+
+def lm_sharding_phase():
+    """Phase 12: the LM on a ``data x model`` mesh of two gloo ranks
+    sharing the card, each rank this script in worker mode
+    (``--phase12-worker``), held to the single-rank port on the card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.multihost import launch_cluster
+    from repro_torch.models import model as M
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.serve import ServeEngine
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_p12_")
+    # the single-rank port on the card: the reference numbers
+    cfg = get_config("qwen2-1.5b")
+    prompts = p12_serve_inputs(cfg)
+    params = p12_params(cfg, torch.float32)
+    logits = p12_prefill(params, cfg, prompts)
+    tokens = ServeEngine(cfg, params, max_len=P12_PROMPT + P12_NEW,
+                         device="cuda").generate(prompts, P12_NEW)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = p12_train_cfg()
+    params = M.trainable(p12_train_params(tcfg))
+    loss, _ = M.loss_fn(params, p12_train_inputs(tcfg), tcfg)
+    grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(tree_leaves(params), grads)]
+    ref_path = os.path.join(tmp, "ref.pt")
+    torch.save({"logits": logits.cpu(), "tokens": tokens,
+                "loss": loss.detach().cpu(),
+                "grads": [g.cpu() for g in grads]}, ref_path)
+    del params, grads, loss, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t_phase
+
+    spec = {"ref": ref_path, "out": os.path.join(tmp, "p12"),
+            "ckpt": os.path.join(tmp, "ckpt")}
+    path = os.path.join(tmp, "p12.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "src")
+    t0 = time.perf_counter()
+    launch_cluster([sys.executable, os.path.abspath(__file__),
+                    "--phase12-worker", path], 2, base_env=env, timeout=900)
+    cluster_s = time.perf_counter() - t0
+    recs = []
+    for r in range(2):
+        with open(f"{spec['out']}.{r}") as f:
+            recs.append(json.load(f))
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    card = smi("name,power.limit")
+    for rec in recs:
+        print(f"lm sharding rank {rec['rank']} ({card}): qwen2-1.5b full "
+              f"config on (1, 2) data x model, float32: prefill logits rel "
+              f"{rec['prefill_rel']:.3e} vs the single-rank port, greedy "
+              f"{P12_NEW} tokens equal {rec['greedy_equal']}; bf16 batch "
+              f"{P12_BATCH}, prompt {P12_PROMPT}: one-token generate "
+              f"{rec['one_token_generate_ms']:.1f} ms, generate "
+              f"{rec['generate_ms']:.1f} ms, decode "
+              f"{rec['decode_ms_per_token']:.2f} ms a token, serving peak "
+              f"{rec['serve_peak_bytes'] / 1e9:.3f} GB; one decode step: "
+              f"{rec['decode_collectives_total']} collectives "
+              f"{rec['decode_collectives']} ({rec['decode_collective_bytes']}"
+              f" bytes sent); 2-layer full "
+              f"width float32 B {P12_TRAIN[1]} x S {P12_TRAIN[2]}: loss rel "
+              f"{rec['loss_2x1_rel']:.2e} / {rec['loss_1x2_rel']:.2e}, worst "
+              f"leaf ||dg||/||g|| {rec['grads_2x1_rel']:.2e} / "
+              f"{rec['grads_1x2_rel']:.2e} on (2, 1) / (1, 2) "
+              f"({rec['train_2x1_s']:.1f} s / {rec['train_1x2_s']:.1f} s); a "
+              f"Trainer step + snapshot on (2, 1) {rec['trainer_step_and_save_s']:.1f} s "
+              f"({rec['snapshot_bytes'] / 1e9:.3f} GB), resumed onto (1, 2) "
+              f"in {rec['resume_s']:.1f} s, equal {rec['resume_equal']}; "
+              f"peak {rec['peak_bytes'] / 1e9:.3f} GB")
+    out = {"card": card, "ranks": recs, "reference_s": ref_s,
+           "cluster_s": cluster_s, "wall_s": time.perf_counter() - t_phase}
+    print(f"phase 12: {out['wall_s']:.1f} s (single-rank reference "
+          f"{ref_s:.1f} s, two-rank world {cluster_s:.1f} s)")
+    for rec in recs:
+        bad = [k for k in ("prefill_rel", "loss_2x1_rel", "loss_1x2_rel",
+                           "grads_2x1_rel", "grads_1x2_rel")
+               if not rec[k] < 1e-3]
+        if bad or not (rec["greedy_equal"] and rec["resume_equal"]):
+            raise AssertionError(f"lm sharding rank {rec['rank']}: {bad} "
+                                 f"{rec}")
     return out
 
 
@@ -3009,9 +3328,13 @@ def main() -> int:
     ap.add_argument("--out", help="also write every number to this JSON file")
     ap.add_argument("--phase8-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)  # one rank of a phase-8 cluster
+    ap.add_argument("--phase12-worker", metavar="SPEC",
+                    help=argparse.SUPPRESS)  # one rank of phase 12's world
     args = ap.parse_args()
     if args.phase8_worker:
         return phase8_worker(args.phase8_worker)
+    if args.phase12_worker:
+        return phase12_worker(args.phase12_worker)
 
     import torch
 
@@ -3101,6 +3424,9 @@ def main() -> int:
     # Phase 11: the remaining mixers (RG-LRU, SSD, MLA, MoE, cross) at
     # full width; no kernel lies on their path.
     mixers = mixers_phase()
+    # Phase 12: the LM on a data x model mesh of two gloo ranks sharing the
+    # card; no kernel lies on its path.
+    lm_sharding = lm_sharding_phase()
     # Host phases of the T10I4D100K mine that no JobProfile row holds: the
     # ingest pass and the speculative C3 generated while C2 counts.
     from repro_torch.core.itemsets import apriori_gen_matrix
@@ -3131,6 +3457,7 @@ def main() -> int:
                        "serve": {"runs": serve_runs, "cli_s": cli_s},
                        "hadoop": hadoop, "sharded": sharded, "lm": lm,
                        "train": train, "mixers": mixers,
+                       "lm_sharding": lm_sharding,
                        "device": device,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": rows}))

@@ -1,8 +1,9 @@
 """DeepSeek-V3 671B — MLA + 1 shared/256 routed top-8 MoE [arXiv:2412.19437].
 
-MTP (multi-token prediction) is an optional extra head of the JAX
-package's training step (off by default); neither MLA, MoE nor training is
-ported to ``repro_torch`` yet (ROADMAP.md), so this file is data only.
+MTP (multi-token prediction) is an optional extra head of the training
+step (off by default).  The port builds, serves and trains this config:
+MLA (``models/attention.py``), the MoE (``models/moe.py``) and MTP
+(``models/model.py``).
 """
 
 from repro_torch.configs.base import ModelConfig, MoEConfig, MLAConfig

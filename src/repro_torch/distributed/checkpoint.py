@@ -89,6 +89,21 @@ def _unflatten(tree_like, leaves):
     return next(leaves)
 
 
+def _whole(tree):
+    """``tree`` with every DTensor leaf replaced by its whole tensor
+    (``full_tensor``, in leaf order on every rank)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: _whole(tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        seq = [_whole(v) for v in tree]
+        return seq if isinstance(tree, list) else type(tree)(seq)
+    if isinstance(tree, DTensor):
+        return tree.full_tensor()
+    return tree
+
+
 def _host_array(leaf) -> Tuple[np.ndarray, str]:
     """(array np.save can write, logical dtype name)."""
     if isinstance(leaf, torch.Tensor):
@@ -133,7 +148,10 @@ def save(ckpt_dir: str, step: int, tree, extra: Optional[Dict] = None,
     directory.  ``fault_plan`` optionally injects torn, killed or
     bit-rotted writes at the protocol's failure points (test harness).
     Only rank 0 writes; the values are whole on every rank, so skipping the
-    write elsewhere loses nothing."""
+    write elsewhere loses nothing.  A DTensor leaf (a tree placed on a
+    mesh) is gathered whole first, which is a collective: every rank calls
+    ``save`` with the same tree."""
+    tree = _whole(tree)
     if process_rank() != 0:
         return os.path.join(ckpt_dir, _snap_name(step))
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -354,10 +372,16 @@ def load(ckpt_dir: str, step: Optional[int] = None):
 
 
 def restore(ckpt_dir: str, tree_like, step: Optional[int] = None,
-            device="cuda"):
+            device="cuda", shardings=None, mesh=None):
     """Restore into the structure of ``tree_like`` as torch tensors on
     ``device`` (the card unless the caller asks for ``"cpu"``), each with
     its ``tree_like`` leaf's dtype.
+
+    ``shardings``: optional matching tree of DTensor placements
+    (``models.params.shardings``) with the ``mesh`` they are on — each
+    leaf becomes a DTensor placed on the *current* mesh, whatever mesh
+    saved it (elastic restart).  Every rank reads the whole snapshot and
+    keeps its own shard, so placing needs no collective.
 
     Returns (tree, step, extra) or None if no snapshot exists.  Snapshots
     are digest-validated first: a corrupt newest snapshot falls back to the
@@ -390,4 +414,11 @@ def restore(ckpt_dir: str, tree_like, step: Optional[int] = None,
             t = torch.from_numpy(np.ascontiguousarray(
                 arr.astype(np.asarray(like).dtype)))
         leaves.append(t.to(dev))
-    return _unflatten(tree_like, iter(leaves)), found_step, extra
+    tree = _unflatten(tree_like, iter(leaves))
+    if shardings is not None:
+        if mesh is None:
+            raise ValueError("restore(shardings=) needs the mesh they are on")
+        from repro_torch.models.params import place
+
+        tree = place(tree, mesh, shardings)
+    return tree, found_step, extra

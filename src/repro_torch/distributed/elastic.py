@@ -8,14 +8,17 @@ identical on every mesh shape, so elasticity never changes results, only
 how much memory and parallelism the resumed run gets.  The miner drives it
 (``FrequentItemsetMiner._elastic_rebuild``).
 
-The LM half of the reference module (``elastic_mesh``, ``resume``) belongs
-to the LM scaffolding and is not ported.
+For the LM, ``elastic_mesh`` rebuilds the largest ``data x model`` mesh
+on the survivors, keeping the model axis and shedding data parallelism,
+and ``resume`` restores a snapshot onto it, each leaf placed as the
+current mesh's rules dictate whatever mesh saved it.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence, Tuple
 
+from repro_torch.distributed.sharding import ShardingRules, default_rules
 from repro_torch.launch.mesh import mesh_of_ranks
 
 
@@ -51,3 +54,57 @@ def elastic_data_cand_mesh(ranks: Sequence[int], want_cand: bool = False,
     n_data = n // n_cand
     return mesh_of_ranks(ranks[: n_data * n_cand], (n_data, n_cand),
                          ("data", "cand"), device)
+
+
+def elastic_mesh(ranks: Optional[Sequence[int]] = None, model_axis: int = 16,
+                 axis_names: Tuple[str, str] = ("data", "model"),
+                 device="cuda"):
+    """Largest (data, model) mesh on the surviving ranks (default: the
+    whole world).
+
+    Keeps the model axis at ``model_axis`` if possible (the TP degree is
+    what the layout is tuned for, so data parallelism is shed first);
+    otherwise halves it until it divides the survivors.  Building it is
+    collective: every rank of the world calls this.
+    """
+    if ranks is None:
+        from repro_torch.launch.mesh import _world
+
+        ranks = range(_world(device)[1])
+    ranks = list(ranks)
+    if not ranks:
+        raise ValueError("no surviving ranks to rebuild a mesh on")
+    data, model = elastic_grid(len(ranks), model_axis)
+    return mesh_of_ranks(ranks[: data * model], (data, model), axis_names,
+                         device)
+
+
+def elastic_grid(n: int, model_axis: int = 16) -> Tuple[int, int]:
+    """``elastic_mesh``'s (data, model) grid on ``n`` ranks."""
+    model = model_axis
+    while model > 1 and n % model:
+        model //= 2
+    return n // model, model
+
+
+def resume(ckpt_dir: str, abstract_state, mesh=None,
+           rules: Optional[ShardingRules] = None, step: Optional[int] = None,
+           device="cuda"):
+    """Restore ``abstract_state`` (a tree of ParamSpec) onto ``mesh``
+    (default: ``elastic_mesh()``) under ``rules`` (default:
+    ``default_rules()``).
+
+    Returns (state_tree, step, extra) with every leaf a DTensor placed as
+    the current mesh dictates, whatever mesh saved it.
+    """
+    from repro_torch.distributed import checkpoint as ckpt
+    from repro_torch.models.params import shape_structs, shardings
+
+    mesh = mesh if mesh is not None else elastic_mesh(device=device)
+    rules = rules or default_rules()
+    sh = shardings(abstract_state, mesh, rules.rules)
+    out = ckpt.restore(ckpt_dir, shape_structs(abstract_state), step=step,
+                       device=device, shardings=sh, mesh=mesh)
+    if out is None:
+        raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+    return out

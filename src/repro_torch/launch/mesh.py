@@ -10,8 +10,10 @@ on the CPU), so ``FrequentItemsetMiner(mesh=make_data_mesh())`` works in a
 plain script on one card.  Building a mesh creates its sub-groups, which is
 collective: every rank of the world calls the constructor, in the same order.
 
-The LM meshes of the reference (``make_production_mesh``,
-``make_host_mesh``) belong to the LM scaffolding and are not ported.
+The LM meshes have the axes ``("data", "model")``, or ``("pod", "data",
+"model")`` across pods: ``make_production_mesh`` is the reference's
+production grid, (16, 16) or (2, 16, 16) ranks, and ``make_host_mesh`` a
+``data x model`` grid over whatever ranks exist.
 """
 
 from __future__ import annotations
@@ -85,3 +87,35 @@ def make_data_cand_mesh(n_data: Optional[int] = None,
             f"ranks but only {total} exist (launch more processes)")
     return mesh_of_ranks(range(n_data * n_cand), (n_data, n_cand),
                          ("data", "cand"), device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
+    """The LM's production mesh over the world's first ranks: ``data x
+    model`` (16, 16), or ``pod x data x model`` (2, 16, 16) across pods.
+    A smaller world fails here with the grid spelled out."""
+    import torch.distributed as dist
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 1
+    for n in shape:
+        need *= n
+    # Checked before ``_world`` would make a one-rank group to fail in.
+    total = dist.get_world_size() if dist.is_initialized() else 1
+    if need > total:
+        grid = " x ".join(f"{a} {n}" for a, n in zip(names, shape))
+        raise ValueError(f"production mesh {grid} needs {need} ranks but "
+                         f"only {total} exist (launch more processes)")
+    device_type, _ = _world(device)
+    return mesh_of_ranks(range(need), shape, names, device_type)
+
+
+def make_host_mesh(model_axis: int = 1, device="cuda"):
+    """``data x model`` mesh over every rank of the world (tests, one
+    host): ``model_axis`` ranks to a model group."""
+    device_type, total = _world(device)
+    if total % model_axis:
+        raise ValueError(f"model axis {model_axis} does not divide the "
+                         f"world's {total} ranks")
+    return mesh_of_ranks(range(total), (total // model_axis, model_axis),
+                         ("data", "model"), device_type)

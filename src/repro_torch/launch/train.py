@@ -14,8 +14,10 @@ The run has the full fault-tolerance path: resume, atomic snapshots, NaN
 rollback, straggler flags.  ``--shape``'s global batch and sequence length
 are the defaults on the card (on the CPU: 4 x 128); a single card holds
 qwen2-1.5b's 4,096-token sequences only at a small ``--batch`` or with
-``--microbatches``.  ``--multi-pod`` (the production mesh) waits for LM
-sharding and raises.  It prints the reference's JSON summary line.  Every
+``--microbatches``.  ``--multi-pod`` trains on the multi-pod production mesh
+(``make_production_mesh(multi_pod=True)``, 2 x 16 x 16 ranks, under
+``default_rules(multi_pod=True)``): every rank runs this module, and a
+smaller world fails with the mesh's error.  It prints the reference's JSON summary line.  Every
 architecture of ``configs`` trains; a vision config's batches carry zero
 patch embeddings (the stub frontend, as ``launch/serve.py --lm`` gives).
 """
@@ -29,6 +31,7 @@ from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.base import LM_SHAPES
 from repro_torch.core.runtime.engine import resolve_device
 from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.distributed.sharding import default_rules
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -65,11 +68,15 @@ def main(argv=None) -> None:
                     help="cuda (the full config) or cpu (the reduced one)")
     args = ap.parse_args(argv)
 
-    if args.multi_pod:
-        raise NotImplementedError(
-            "--multi-pod: LM sharding is not ported to repro_torch yet "
-            "(ROADMAP.md, queue item 10.3)")
     dev = resolve_device(args.device)
+    mesh = rules = None
+    if args.multi_pod:
+        from repro_torch.distributed.ctx import initialize_multihost
+        from repro_torch.launch.mesh import make_production_mesh
+
+        initialize_multihost(device=dev)
+        mesh = make_production_mesh(multi_pod=True, device=dev)
+        rules = default_rules(multi_pod=True)
     on_card = dev.type == "cuda"
     cfg = (get_config(args.arch) if on_card and not args.reduced
            else get_reduced(args.arch))
@@ -89,7 +96,8 @@ def main(argv=None) -> None:
     data = pipeline.iterator
     if cfg.frontend == "vision_patches":
         data = with_zero_patches(data, cfg, batch)
-    trainer = Trainer(cfg, ocfg, tcfg, data, device=dev)
+    trainer = Trainer(cfg, ocfg, tcfg, data, mesh=mesh, rules=rules,
+                      device=dev)
     summary = trainer.run()
     print(json.dumps({k: v for k, v in summary.items() if k != "log"}))
 

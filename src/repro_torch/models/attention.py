@@ -25,6 +25,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import (
+    active_sharding, as_dtensor, constrain, local_offset, local_region,
+    write_seq)
 from repro_torch.models.layers import _matmul, rope
 from repro_torch.models.params import spec
 
@@ -85,6 +88,34 @@ def flash_attention(
     kv_chunk: int = 1024,
     score_dtype=torch.float32,  # bf16: halves score-tile traffic
 ) -> torch.Tensor:
+    kw = dict(causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset, q_chunk=q_chunk, kv_chunk=kv_chunk,
+              score_dtype=score_dtype)
+    if active_sharding() is not None:
+        return _local_heads(_flash, q, k, v, kw)
+    return _flash(q, k, v, **kw)
+
+
+def _local_heads(fn, q, k, v, kw):
+    """``fn`` (attention over plain tensors) on each rank's own batch rows
+    and kv-head groups: k and v placed ("batch", None, "kv_heads", None),
+    q split as k (its heads dim in whole groups; replicated where the kv
+    heads do not divide the model axis), the output placed as q.  Heads
+    and rows attend independently, so this needs no collective and gives
+    the single-device numbers; the score tiles are never DTensors."""
+    from torch.distributed.tensor import DTensor
+
+    k = constrain(k, "batch", None, "kv_heads", None)
+    v = constrain(v, "batch", None, "kv_heads", None)
+    mesh, pl = k.device_mesh, k.placements
+    q = as_dtensor(q, mesh).redistribute(mesh, pl)
+    with local_region():
+        out = fn(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(out, mesh, pl, run_check=False)
+
+
+def _flash(q, k, v, *, causal, window, softcap, q_offset, q_chunk, kv_chunk,
+           score_dtype):
     b, s, h, d = q.shape
     t, kvh = k.shape[1], k.shape[2]
     dv = v.shape[-1]
@@ -143,22 +174,72 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window=None, softcap=Non
     q: (B, 1, H, D); caches: (B, T, KV, D); cache_len: current length (the
     new token's k/v must already be written at cache_len - 1).
     """
+    if active_sharding() is not None:
+        return _decode_sharded(q, k_cache, v_cache, cache_len, window, softcap)
+    return _decode(q, k_cache, v_cache, cache_len, window, softcap)
+
+
+def _decode_scores(q, k_cache, cache_len, start, window, softcap):
+    """(B, KV, G, T) float32 scores of one token against the cache rows
+    that hold positions start .. start + T - 1, masked."""
     b, _, h, d = q.shape
     t, kvh = k_cache.shape[1], k_cache.shape[2]
-    dv = v_cache.shape[-1]
-    groups = h // kvh
-    qg = q.reshape(b, kvh, groups, d)
+    qg = q.reshape(b, kvh, h // kvh, d)
     s = _einsum("bkgd,bskd->bkgs", qg, k_cache).float() * (d ** -0.5)
     if softcap is not None:
         s = torch.tanh(s / softcap) * softcap
-    pos = torch.arange(t, device=q.device)
+    pos = start + torch.arange(t, device=q.device)
     valid = pos < cache_len
     if window is not None:
         valid &= pos >= cache_len - window
-    s = s.masked_fill(~valid, NEG_INF)
+    return s.masked_fill(~valid, NEG_INF)
+
+
+def _decode(q, k_cache, v_cache, cache_len, window, softcap):
+    s = _decode_scores(q, k_cache, cache_len, 0, window, softcap)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache)
-    return out.reshape(b, 1, h, dv).to(q.dtype)
+    b, _, h, _ = q.shape
+    return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
+
+
+def _decode_sharded(q, k_cache, v_cache, cache_len, window, softcap):
+    """Decode attention on each rank's own shard of a placed cache: its
+    batch rows, its kv-head groups and, where ``cache_seq`` shards the
+    cache, its positions.  Without a position split each rank finishes
+    the softmax alone.  With one, each rank keeps its partial max, sum and
+    product with v (flash-decoding partials) and the combine is one max
+    and two sums over the position shards: the reference's "one small
+    psum for the softmax"."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = k_cache.device_mesh
+    cpl = k_cache.placements
+    qpl = tuple(Replicate() if p == Shard(1) else p for p in cpl)
+    q = as_dtensor(q, mesh).redistribute(mesh, qpl)
+    ql, kl, vl = q.to_local(), k_cache.to_local(), v_cache.to_local()
+    with local_region():
+        if Shard(1) not in cpl:
+            out = _decode(ql, kl, vl, cache_len, window, softcap)
+            return DTensor.from_local(out, mesh, qpl, run_check=False)
+        s = _decode_scores(ql, kl, cache_len, local_offset(k_cache)[1],
+                           window, softcap)
+        m = s.amax(dim=-1)
+        e = torch.exp(s - m[..., None])
+        parts = (m, e.sum(dim=-1),
+                 torch.einsum("bkgs,bskd->bkgd", e.to(vl.dtype), vl).float())
+    # (B, KV, G, *) partials on a leading axis sharded like the positions
+    ppl = [{Shard(0): Shard(1), Shard(1): Shard(0), Shard(2): Shard(2)}.get(
+        p, Replicate()) for p in cpl]
+    m, l, o = (DTensor.from_local(x[None], mesh, ppl, run_check=False)
+               for x in parts)
+    w = torch.exp(m - m.amax(dim=0))
+    o = (o * w[..., None]).sum(dim=0) / (l * w).sum(dim=0)[..., None]
+    o = o.redistribute(mesh, [{Shard(0): Shard(0), Shard(2): Shard(1)}.get(
+        p, Replicate()) for p in cpl]).to_local()
+    b, _, h, _ = ql.shape
+    out = o.reshape(b, 1, h, o.shape[-1]).to(q.dtype)
+    return DTensor.from_local(out, mesh, qpl, run_check=False)
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +264,9 @@ def gqa_abstract(cfg: ModelConfig, cross: bool = False):
 def gqa_project_qkv(params, x, kv_x=None, positions=None, cfg: ModelConfig = None,
                     use_rope: bool = True):
     kv_x = x if kv_x is None else kv_x
-    q = _matmul(x, params["wq"])
-    k = _matmul(kv_x, params["wk"])
-    v = _matmul(kv_x, params["wv"])
+    q = constrain(_matmul(x, params["wq"]), "batch", None, "heads", None)
+    k = constrain(_matmul(kv_x, params["wk"]), "batch", None, "kv_heads", None)
+    v = constrain(_matmul(kv_x, params["wv"]), "batch", None, "kv_heads", None)
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     if use_rope and positions is not None:
@@ -238,7 +319,7 @@ def mla_latent(params, x, positions, cfg: ModelConfig):
 def mla_queries(params, x, positions, cfg: ModelConfig):
     m = cfg.mla
     q_a = _norm(x @ params["wq_a"], params["q_norm"])
-    q = _matmul(q_a, params["wq_b"])
+    q = constrain(_matmul(q_a, params["wq_b"]), "batch", None, "heads", None)
     q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim :]
     q_rope = rope(q_rope, positions, cfg.rope_theta)
     return q_nope, q_rope
@@ -262,7 +343,8 @@ def mla_attention(params, x, positions, cfg: ModelConfig, q_chunk=1024, kv_chunk
     c_kv, k_rope = mla_latent(params, x, positions, cfg)      # (B,S,kr), (B,S,rd)
     q_nope, q_rope = mla_queries(params, x, positions, cfg)   # (B,S,H,*)
     # Absorb W_kb into the query: q_lat (B,S,H,kr)
-    q_lat = torch.einsum("...hk,rhk->...hr", q_nope, params["wk_b"])
+    q_lat = constrain(torch.einsum("...hk,rhk->...hr", q_nope, params["wk_b"]),
+                      "batch", None, "heads", None)
     q_eff = torch.cat([q_lat, q_rope], dim=-1)
     k_eff = torch.cat([c_kv, k_rope], dim=-1)[..., None, :]  # KV=1 head
     scale_fix = (m.nope_head_dim + m.rope_head_dim) ** -0.5 / (
@@ -280,9 +362,8 @@ def mla_decode(params, x, c_cache, krope_cache, cache_len, positions, cfg):
     lands at cache_len - 1 in place."""
     m = cfg.mla
     c_new, kr_new = mla_latent(params, x, positions, cfg)
-    idx = cache_len - 1
-    c_cache[:, idx : idx + 1] = c_new.to(c_cache.dtype)
-    krope_cache[:, idx : idx + 1] = kr_new.to(krope_cache.dtype)
+    write_seq(c_cache, cache_len - 1, c_new.to(c_cache.dtype))
+    write_seq(krope_cache, cache_len - 1, kr_new.to(krope_cache.dtype))
     q_nope, q_rope = mla_queries(params, x, positions, cfg)
     q_lat = torch.einsum("...hk,rhk->...hr", q_nope, params["wk_b"])
     t = c_cache.shape[1]

@@ -21,6 +21,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import constrain, write_seq
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
@@ -140,6 +141,7 @@ def layer_apply(
     positions, vis_embeds=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B,S,D) -> (x, aux_loss)."""
+    x = constrain(x, "batch", None, None)
     h = L.rmsnorm(lp["ln1"], x)
     if temporal in ("attn", "local"):
         t_out = _attend(lp, h, temporal, cfg, positions)[0]
@@ -205,15 +207,15 @@ def layer_prefill(
             t_out, k, v = _cross(lp, h, cfg, vis_embeds)
         else:
             t_out, k, v = _attend(lp, h, temporal, cfg, positions)
-        cache["k"][:, : k.shape[1]] = k.to(cache["k"].dtype)
-        cache["v"][:, : v.shape[1]] = v.to(cache["v"].dtype)
+        write_seq(cache["k"], 0, k.to(cache["k"].dtype))
+        write_seq(cache["v"], 0, v.to(cache["v"].dtype))
     elif temporal == "mla":
         t_out = attn.mla_attention(lp["attn"], h, positions, cfg,
                                    q_chunk=cfg.attn_chunk,
                                    kv_chunk=cfg.attn_chunk)
         c_kv, k_rope = attn.mla_latent(lp["attn"], h, positions, cfg)
-        cache["c"][:, :s] = c_kv.to(cache["c"].dtype)
-        cache["krope"][:, :s] = k_rope.to(cache["krope"].dtype)
+        write_seq(cache["c"], 0, c_kv.to(cache["c"].dtype))
+        write_seq(cache["krope"], 0, k_rope.to(cache["krope"].dtype))
     elif temporal == "rglru":
         t_out, cache = _rglru_prefill(lp["rec"], h, cfg, cache)
     elif temporal == "ssd":
@@ -261,9 +263,8 @@ def layer_decode(
     h = L.rmsnorm(lp["ln1"], x)
     if temporal in ("attn", "local"):
         q, k, v = attn.gqa_project_qkv(lp["attn"], h, positions=positions, cfg=cfg)
-        idx = cache_len - 1
-        cache["k"][:, idx : idx + 1] = k.to(cache["k"].dtype)
-        cache["v"][:, idx : idx + 1] = v.to(cache["v"].dtype)
+        write_seq(cache["k"], cache_len - 1, k.to(cache["k"].dtype))
+        write_seq(cache["v"], cache_len - 1, v.to(cache["v"].dtype))
         window = cfg.window if temporal == "local" else None
         o = attn.decode_attention(q, cache["k"], cache["v"], cache_len,
                                   window=window, softcap=cfg.attn_softcap)

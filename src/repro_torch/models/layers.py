@@ -12,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models.params import spec
 
 
@@ -42,7 +43,7 @@ def embedding_abstract(cfg: ModelConfig):
 
 
 def embed(params, tokens):
-    return params["table"][tokens]
+    return constrain(F.embedding(tokens, params["table"]), "batch", None, None)
 
 
 def unembed(params, x, softcap: Optional[float] = None):
@@ -94,6 +95,7 @@ def mlp(params, x, cfg: ModelConfig):
         up = up + params["b_up"]
     act = _act(cfg.mlp_act)
     h = act(up) * (x @ params["w_gate"]) if cfg.mlp_gated else act(up)
+    h = constrain(h, "batch", *(None,) * (h.ndim - 2), "mlp")
     out = h @ params["w_down"]
     if "b_down" in params:
         out = out + params["b_down"]

@@ -27,6 +27,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import (
+    active_sharding, constrain, recompute_context)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.params import spec, tree_map
@@ -89,11 +91,16 @@ def forward(params, batch, cfg: ModelConfig):
 def _ce_chunk(params, x_chunk, labels_chunk, cfg):
     """(sum of the masked token losses, count of unmasked labels)."""
     logits = _logits(params, x_chunk, cfg)              # (B, c, V) f32
+    logits = constrain(logits, "batch", None, "vocab")
     lse = torch.logsumexp(logits, dim=-1)
     # A masked label gathers column 0 (the reference wraps it to V - 1):
     # either way the product with the mask is 0.
     idx = labels_chunk.clamp(min=0).long()[..., None]
-    ll = torch.gather(logits, -1, idx)[..., 0]
+    if active_sharding() is None:
+        ll = torch.gather(logits, -1, idx)[..., 0]
+    else:  # a masked sum over the sharded vocab: one term, the same value
+        hit = torch.arange(logits.shape[-1], device=idx.device) == idx
+        ll = torch.where(hit, logits, 0.0).sum(dim=-1)
     mask = labels_chunk >= 0
     return torch.sum((lse - ll) * mask), torch.sum(mask).float()
 
@@ -118,13 +125,15 @@ def loss_fn(params, batch, cfg: ModelConfig, aux_coef: float = 0.01,
     usable = n_chunks * seq_chunk
 
     wrap = not cfg.unroll_loops and torch.is_grad_enabled()
+    context_fn = recompute_context()
+    kw = {} if context_fn is None else {"context_fn": context_fn}
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
     cnt = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(n_chunks):
         sl = slice(c * seq_chunk, (c + 1) * seq_chunk)
         args = (params, x[:, sl], labels[:, sl], cfg)
-        t, n = (checkpoint(_ce_chunk, *args, use_reentrant=False) if wrap
-                else _ce_chunk(*args))
+        t, n = (checkpoint(_ce_chunk, *args, use_reentrant=False, **kw)
+                if wrap else _ce_chunk(*args))
         tot, cnt = tot + t, cnt + n
     if usable < s:
         t2, c2 = _ce_chunk(params, x[:, usable:], labels[:, usable:], cfg)

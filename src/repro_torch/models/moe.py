@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import active_sharding, constrain
 from repro_torch.models.layers import _act, mlp, mlp_abstract
 from repro_torch.models.params import spec
 
@@ -93,18 +94,60 @@ def group(x, cfg: ModelConfig):
 
 def router_probs(params, xg):
     """(G, S, E) float32 softmax of the float32 router logits."""
-    return torch.softmax(xg.float() @ params["router"].float(), dim=-1)
+    logits = constrain(xg.float() @ params["router"].float(), "batch", None,
+                       None)
+    return torch.softmax(logits, dim=-1)
+
+
+def _routed(xg, dispatch, combine, w_up, w_gate, w_down, act):
+    """The routed experts' FFN over (E, G, C, D) and the combine."""
+    xin = torch.einsum("gsec,gsd->egcd", dispatch, xg)           # all-to-all in
+    h = act(torch.einsum("egcd,edf->egcf", xin, w_up))
+    if w_gate is not None:
+        h = h * torch.einsum("egcd,edf->egcf", xin, w_gate)
+    hout = torch.einsum("egcf,efd->egcd", h, w_down)             # expert FFN
+    return torch.einsum("egcd,gsec->gsd", hout, combine.to(xg.dtype))
+
+
+def _routed_sharded(xg, dispatch, combine, ws, act):
+    """``_routed`` with experts on the model axis (expert parallelism):
+    dispatch and combine are placed ("batch", None, "experts", None), the
+    expert weights ("experts", None, None) (their FSDP dims gathered),
+    the tokens ("batch", None, None); each rank runs its own experts on
+    its own groups, so (E, G, C, *) stays ("experts", "batch", None, None)
+    as the reference constrains it.  Each rank's combine is a partial sum
+    over its experts: the partials stand on a leading axis sharded like
+    the experts, and their sum is the all-reduce."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dispatch = constrain(dispatch, "batch", None, "experts", None)
+    combine = constrain(combine, "batch", None, "experts", None)
+    xg = constrain(xg, "batch", None, None)
+    ws = [None if w is None else constrain(w, "experts", None, None)
+          for w in ws]
+    # The tokens are whole along the experts' mesh axes, but each rank's
+    # gradient of them covers its own experts only: a partial sum there.
+    ep = [p == Shard(2) for p in dispatch.placements]
+    x_local = xg.to_local(grad_placements=[
+        Partial() if e else p for e, p in zip(ep, xg.placements)])
+    local = _routed(x_local, dispatch.to_local(), combine.to_local(),
+                    *(None if w is None else w.to_local() for w in ws), act)
+    parts = [Shard(0) if e else Shard(1) if p == Shard(0) else Replicate()
+             for e, p in zip(ep, dispatch.placements)]
+    parts = DTensor.from_local(local[None], dispatch.device_mesh, parts,
+                               run_check=False)
+    return constrain(parts.sum(0), "batch", None, None)
 
 
 def experts(params, xg, dispatch, combine, cfg: ModelConfig):
     """The routed experts' FFN over (E, G, C, D) and the combine, plus the
     shared expert: (G, S, D)."""
-    xin = torch.einsum("gsec,gsd->egcd", dispatch, xg)
-    h = _act(cfg.mlp_act)(torch.einsum("egcd,edf->egcf", xin, params["w_up"]))
-    if "w_gate" in params:
-        h = h * torch.einsum("egcd,edf->egcf", xin, params["w_gate"])
-    hout = torch.einsum("egcf,efd->egcd", h, params["w_down"])  # expert FFN
-    out = torch.einsum("egcd,gsec->gsd", hout, combine.to(xg.dtype))
+    ws = (params["w_up"], params.get("w_gate"), params["w_down"])
+    act = _act(cfg.mlp_act)
+    if active_sharding() is None:
+        out = _routed(xg, dispatch, combine, *ws, act)
+    else:
+        out = _routed_sharded(xg, dispatch, combine, ws, act)
     if "shared" in params:
         out = out + mlp(params["shared"], xg, cfg)
     return out

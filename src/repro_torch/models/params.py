@@ -8,16 +8,23 @@ turns one into tensors on a device.  Leaves are visited in the order
 ``jax.tree`` flattens a dict (sorted keys), so a tree's leaves line up one
 to one with the reference's.
 
-The logical axis names are kept for the sharding slice: ``logical_to_pspec``,
-``shardings`` and ``shape_structs`` (mesh placement of the LM's
-parameters) are not ported yet (ROADMAP.md).
+Each leaf's logical axis names place it on a mesh of ranks:
+``logical_to_pspec`` resolves them through the sharding rules
+(``distributed.sharding``) to the reference's per-dimension spec,
+``placements`` turns a spec into DTensor placements, ``shardings`` gives a
+tree of them, ``place`` puts a tree of whole tensors onto a mesh as
+DTensors, and ``shape_structs`` gives the meta tensors (global and
+per-rank shapes) that a dry run reads.  The port holds one tree per layer where the
+reference stacks the layers, so a leaf's spec is the reference's stacked
+leaf's spec without its leading ``layers`` entry (``None`` under every
+rule).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -107,3 +114,145 @@ def count_params(tree) -> int:
         shape = leaf.shape
         total += int(np.prod(shape)) if shape else 1
     return total
+
+
+# -- mesh placement ----------------------------------------------------------
+
+def _axis_size(mesh, name: str) -> int:
+    """The size of mesh axis ``name``: a ``DeviceMesh``'s named dim, or
+    ``mesh.shape[name]`` for any object whose ``shape`` maps names to
+    sizes (a stand-in mesh of a dry run or a test)."""
+    shape = mesh.shape
+    if isinstance(shape, dict):
+        return int(shape[name])
+    return int(mesh.size(mesh.mesh_dim_names.index(name)))
+
+
+def logical_to_pspec(axes: Sequence[Optional[str]], rules: dict,
+                     shape: Optional[Sequence[int]] = None,
+                     mesh=None) -> tuple:
+    """Resolve logical axes to a spec: one entry per dimension, ``None``
+    (replicated), a mesh axis name or a tuple of names.
+
+    With ``shape`` and ``mesh`` given, a dim whose size is not divisible by
+    the product of its mesh axes drops leading axes until it divides, and
+    falls back to replication when none is left (the MaxText rule: 2 KV
+    heads cannot be sharded over a 16-way model axis).  A mesh axis
+    appears at most once in a spec.
+    """
+    out = []
+    used: set = set()
+    for i, name in enumerate(axes):
+        mesh_axes = rules.get(name) if name is not None else None
+        if mesh_axes is None:
+            out.append(None)
+            continue
+        if isinstance(mesh_axes, str):
+            mesh_axes = (mesh_axes,)
+        mesh_axes = tuple(a for a in mesh_axes if a not in used)
+        if shape is not None and mesh is not None and mesh_axes:
+            while mesh_axes:  # progressive fallback
+                total = 1
+                for a in mesh_axes:
+                    total *= _axis_size(mesh, a)
+                if shape[i] % total == 0:
+                    break
+                mesh_axes = mesh_axes[1:]
+        used.update(mesh_axes)
+        if not mesh_axes:
+            out.append(None)
+        else:
+            out.append(mesh_axes if len(mesh_axes) != 1 else mesh_axes[0])
+    return tuple(out)
+
+
+def placements(pspec: tuple, mesh) -> tuple:
+    """DTensor placements of ``pspec`` on ``mesh``, one per mesh dim:
+    ``Shard(d)`` where the spec puts tensor dim ``d`` on that mesh axis,
+    else ``Replicate()``.  A dim over several mesh axes is split in mesh
+    order (major to minor), as the reference's tuple of axes is.  A mesh
+    axis of size 1 replicates: its one shard is the whole tensor (and
+    DTensor refuses to drop a size-1 dim that it counts as sharded)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for dim, entry in enumerate(pspec):
+        if entry is None:
+            continue
+        for a in (entry,) if isinstance(entry, str) else entry:
+            if _axis_size(mesh, a) > 1:
+                out[names.index(a)] = Shard(dim)
+    return tuple(out)
+
+
+def shardings(tree, mesh, rules: dict):
+    """The placements of every leaf of an abstract tree on ``mesh``."""
+    def one(s: ParamSpec):
+        return placements(logical_to_pspec(s.axes, rules, s.shape, mesh), mesh)
+
+    return tree_map_specs(one, tree)
+
+
+def local_shape(shape: Sequence[int], pspec: tuple, mesh) -> Tuple[int, ...]:
+    """One rank's shard of a ``shape`` tensor placed by ``pspec`` (whose
+    dims divide, as ``logical_to_pspec`` with a mesh guarantees)."""
+    out = []
+    for n, entry in zip(shape, pspec):
+        for a in () if entry is None else (
+                (entry,) if isinstance(entry, str) else entry):
+            n //= _axis_size(mesh, a)
+        out.append(n)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeStruct:
+    """A leaf placed on a mesh without memory: the meta tensor of its
+    global shape, its spec and one rank's shard of it (a meta tensor)."""
+
+    global_: torch.Tensor
+    pspec: tuple
+    local: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.global_.shape
+
+    @property
+    def dtype(self):
+        return self.global_.dtype
+
+
+def shape_structs(tree, mesh=None, rules: Optional[dict] = None,
+                  dtype_override: Optional[torch.dtype] = None):
+    """Meta tensors of every leaf's global shape; with ``mesh`` and
+    ``rules``, a ``ShapeStruct`` per leaf that also holds its spec and its
+    per-rank shard.  ``mesh`` may be a stand-in whose ``shape`` maps axis
+    names to sizes: nothing here touches a process group."""
+    def one(s: ParamSpec):
+        dt = dtype_override or s.dtype
+        glob = torch.empty(s.shape, dtype=dt, device="meta")
+        if mesh is None:
+            return glob
+        ps = logical_to_pspec(s.axes, rules, s.shape, mesh)
+        return ShapeStruct(glob, ps, torch.empty(local_shape(s.shape, ps, mesh),
+                                                 dtype=dt, device="meta"))
+
+    return tree_map_specs(one, tree)
+
+
+def place(tree, mesh, placements_tree):
+    """Each leaf of a tree of whole tensors as a DTensor on ``mesh``: every
+    rank holds the same tree (materialized from the same seed, or read
+    from the same snapshot) and keeps its own chunk, so placing needs no
+    collective.  ``placements_tree`` is ``shardings``' tree."""
+    from torch.distributed.tensor import distribute_tensor
+
+    def walk(t, pl):
+        if isinstance(t, dict):
+            return {k: walk(t[k], pl[k]) for k in t}
+        out = distribute_tensor(t.detach(), mesh, pl, src_data_rank=None)
+        return out.requires_grad_(t.requires_grad)
+
+    return walk(tree, placements_tree)

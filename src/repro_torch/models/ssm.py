@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import constrain
 from repro_torch.models.params import spec
 
 
@@ -97,7 +98,7 @@ def ssd_scan(params, u, cfg: ModelConfig):
     z, xbc_in, dt = _split_proj(params, u, cfg)        # dt: (B,S,H) f32
     if seqlen > true_len:  # padded positions: unit decay, no input
         dt = dt * (torch.arange(seqlen, device=u.device) < true_len)[:, None]
-    xbc = _causal_conv(params, xbc_in, cfg)
+    xbc = constrain(_causal_conv(params, xbc_in, cfg), "batch", None, "state")
     x = xbc[..., :d_inner].reshape(b, seqlen, h, p)
     bmat = xbc[..., d_inner : d_inner + n].float()     # (B,S,N)
     cmat = xbc[..., d_inner + n :].float()             # (B,S,N)

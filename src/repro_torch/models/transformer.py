@@ -24,6 +24,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.ctx import recompute_context
 from repro_torch.models import blocks
 
 
@@ -94,10 +95,12 @@ def _remat(fn, cfg: ModelConfig):
     """
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    if cfg.remat == "dots":
-        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
-                                     context_fn=_dots_context)
-    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    context_fn = recompute_context(
+        _dots_context if cfg.remat == "dots" else None)
+    if context_fn is None:
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                 context_fn=context_fn)
 
 
 def stack_apply(params, x, cfg: ModelConfig, *, positions, vis_embeds=None):

@@ -52,8 +52,8 @@ def _microbatch_grads(params, batch, cfg: ModelConfig, microbatches: int):
         return loss, metrics, _unflatten(params, grads)
 
     leaves = tree_leaves(params)
-    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for p in leaves]
+    # zeros_like: on a mesh each accumulator is placed as its leaf is.
+    acc = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
     loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     b = next(iter(batch.values())).shape[0]
     if b % microbatches:

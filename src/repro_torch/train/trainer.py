@@ -20,11 +20,19 @@ rollback replaces both trees with the snapshot's, which leaves no trace of
 it.  ``checkpoint.restore`` returns leaves that take no gradient:
 ``_adopt`` arms the parameters again after every resume and rollback.
 Runs on ``device`` (default ``"cuda"``; raises without a card unless the
-caller asks for ``"cpu"``).  ``mesh=``/``rules=`` (LM sharding) raise.
+caller asks for ``"cpu"``).
+
+On a mesh (``mesh=``, a ``DeviceMesh`` of ranks, and ``rules=``, a
+``ShardingRules``) every rank builds the same trees from the same seed and
+keeps its shards: parameters and optimizer state are DTensors placed by
+``shardings``, the step runs under ``use_sharding``, snapshots gather the
+trees whole (rank 0 writes) and resume and rollback place the snapshot
+onto the current mesh, whatever mesh saved it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, Dict, Iterator, Optional
@@ -35,8 +43,10 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.runtime.engine import resolve_device
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed.ctx import use_sharding, whole
 from repro_torch.models import model as M
-from repro_torch.models.params import materialize
+from repro_torch.models.params import materialize, place
+from repro_torch.models.params import shardings as mk_shardings
 from repro_torch.train.optimizer import OptConfig
 from repro_torch.train.train_step import make_train_step, opt_abstract_with_ef
 
@@ -86,11 +96,10 @@ class Trainer:
         rules=None,
         device="cuda",
     ):
-        if mesh is not None or rules is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=, rules=): LM sharding is not ported to "
-                "repro_torch yet (ROADMAP.md, queue item 10.3)")
+        if (mesh is None) != (rules is None):
+            raise ValueError("Trainer needs both mesh= and rules=, or neither")
         self.cfg, self.ocfg, self.tcfg = cfg, ocfg, tcfg
+        self.mesh, self.rules = mesh, rules
         self.device = resolve_device(device)
         self.data_iter_factory = data_iter_factory
         self.monitor = StragglerMonitor(tcfg.straggler_factor, tcfg.straggler_window)
@@ -101,9 +110,28 @@ class Trainer:
         gen = torch.Generator(device=self.device).manual_seed(tcfg.seed)
         self.params = M.trainable(materialize(gen, abstract))
         self.opt_state = materialize(None, opt_abstract, device=self.device)
-        self.train_step = make_train_step(cfg, ocfg, tcfg.microbatches,
-                                          tcfg.compress_grads)
+        self.placements = None
+        if mesh is not None:
+            self.placements = {
+                "params": mk_shardings(abstract, mesh, rules.rules),
+                "opt": mk_shardings(opt_abstract, mesh, rules.rules)}
+            tree = place(self._state_tree(), mesh, self.placements)
+            self.params = M.trainable(tree["params"])
+            self.opt_state = tree["opt"]
+        step_fn = make_train_step(cfg, ocfg, tcfg.microbatches,
+                                  tcfg.compress_grads)
+
+        def train_step(*args):
+            with self._sharded():
+                return step_fn(*args)
+
+        self.train_step = train_step
         self.step = 0
+
+    def _sharded(self):
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_sharding(self.mesh, self.rules)
 
     # -- checkpointing ----------------------------------------------------
     def _state_tree(self):
@@ -114,13 +142,16 @@ class Trainer:
             return
         ckpt.save(self.tcfg.ckpt_dir, self.step, self._state_tree(),
                   extra={"data_pos": self.step})
+        if self.mesh is not None:  # rank 0 wrote: no rank reads before it
+            torch.distributed.barrier()
 
     def _restore(self):
         """The newest valid snapshot as (tree, step, extra), or None."""
         if self.tcfg.ckpt_dir is None:
             return None
         return ckpt.restore(self.tcfg.ckpt_dir, self._state_tree(),
-                            device=self.device)
+                            device=self.device, shardings=self.placements,
+                            mesh=self.mesh)
 
     def _adopt(self, tree) -> None:
         self.params = M.trainable(tree["params"])
@@ -147,7 +178,7 @@ class Trainer:
             t0 = time.time()
             params, opt_state, metrics = self.train_step(
                 self.params, self.opt_state, batch, self.step)
-            loss = float(metrics["loss"])
+            loss = float(whole(metrics["loss"]))
             dt = time.time() - t0
 
             if not np.isfinite(loss):
@@ -165,7 +196,7 @@ class Trainer:
             self.step += 1
             rec = {"step": self.step, "loss": loss, "sec": dt,
                    "straggler_flag": straggled,
-                   "grad_norm": float(metrics["grad_norm"])}
+                   "grad_norm": float(whole(metrics["grad_norm"]))}
             self.metrics_log.append(rec)
 
             if self.step % self.tcfg.ckpt_every == 0:

@@ -462,7 +462,7 @@ def test_generate_from_lm_module_and_sampling():
     assert not np.array_equal(draws[0], draws[2])
     with pytest.raises(ValueError, match="max_len"):
         eng.generate(prompts, 17)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="mesh= and rules="):
         ServeEngine(cfg, model, mesh=object(), device="cpu")
 
 

@@ -483,10 +483,10 @@ def test_service_defaults_to_the_card_and_refuses_unported_backends(
     import repro_torch.serve as serve
     from repro_torch.serve.lm import ServeEngine
 
-    # The LM engine resolves lazily, as in the reference; its sharding is
-    # not ported.
+    # The LM engine resolves lazily, as in the reference; on a mesh it
+    # needs the sharding rules too.
     assert serve.ServeEngine is ServeEngine
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="mesh= and rules="):
         serve.ServeEngine(None, {}, mesh=cpu_mesh)
     with pytest.raises(AttributeError):
         serve.NoSuchEngine

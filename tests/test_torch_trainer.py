@@ -179,10 +179,12 @@ def test_compressed_microbatched_trainer_runs(setup):
 
 def test_mesh_and_multi_pod_raise(setup):
     cfg, pipe = setup
-    with pytest.raises(NotImplementedError, match="10.3"):
+    with pytest.raises(ValueError, match="mesh= and rules="):
         Trainer(cfg, OptConfig(), TrainerConfig(), pipe.iterator,
                 mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="10.3"):
+    # One process is a world of one rank: the 2 x 16 x 16 grid fails.
+    with pytest.raises(ValueError, match="pod 2 x data 16 x model 16 needs "
+                                         "512 ranks but only 1 exist"):
         launch_train.main(["--arch", "qwen2-1.5b", "--multi-pod",
                            "--device", "cpu"])
 
