@@ -105,7 +105,8 @@ result line) when it fails:
    level checkpoint; (c) ``python -m repro_torch.launch.multihost`` on two
    gloo ranks, BMS_WebView_2, ``--kill-k 3``: rank 1 exits with 137, one
    rank is relaunched from the checkpoint (``restored_step`` >= 2, the
-   clean run's counting jobs).  Every answer must equal phase 4's
+   clean run's counting jobs); (c) starts first and runs beside (a)-(e),
+   so their walls include it.  Every answer must equal phase 4's
    ``perfect_hash`` SPC mine, and each rank's kernel launches what its
    waves ask for (its row blocks x candidate chunks) or its ladder levels
    (its rows);
@@ -184,7 +185,32 @@ result line) when it fails:
    (TP): the loss and every gradient (each leaf ||dg|| / ||g||) within
    1e-3 of the single rank's; one ``Trainer`` step on (2, 1) and its
    snapshot, resumed onto (1, 2) through ``elastic.resume`` bit for bit.
-   No kernel lies on this path.
+   No kernel lies on this path;
+13. the dry run (``repro_torch.launch.dryrun``) and one H100's share of
+   the production count job: (a) ``--apriori`` (the eight count-step cells
+   of both production meshes) and qwen2-1.5b's ``train_4k`` and
+   ``decode_32k`` cells on the data 16 x model 16 mesh, each its own
+   process on a fake 512-rank group under ``FakeTensorMode`` (started
+   before phase 10, they run on the host beside phases 10-12), every
+   record printed; the bitmap
+   cells' flops a device exactly 2 N_local F C_local (2^49 / 2^53 on pod1,
+   2^48 / 2^52 on pod2, useful fraction 1.0 / 0.0625) and every cell's
+   argument bytes the bytes of its arguments' local shards; (b) pod1's
+   per-device share of ``run_apriori_cell``'s job on the card: a seeded
+   2^23 x 4,096 uint8 bitmap (34.4 GB, item density 1/16), its packed
+   words (4.3 GB) and 8,192 3-hot candidates, through both kernels twice
+   each (a warm-up and a timed call, the path's launches: ``count_share``
+   in the ``kernels`` line), every count equal, and on the first 2^18
+   rows both kernels equal to the dry run's plain bf16 count step and its ``perfect_hash``
+   gathers; each time beside its bound and the dry run's per-device
+   terms of that cell; (c) in its own process (a one-rank NCCL group,
+   started with (b): it predicts on the host while (b) holds the card,
+   then waits for it), the dry run of phase 10 (a)'s step (qwen2-1.5b,
+   8 x 1,024, bf16, float32 moments, remat full) on a (1, 1) mesh of the
+   card: its flops equal
+   ``FlopCounterMode`` over the real step and its argument bytes the
+   placed tensors' bytes, exactly; the predicted peak memory and step
+   bound printed beside the measured ones.
 
 It prints a ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line
 and, last, ``{"ok": true, "device": {...}}``.
@@ -198,6 +224,7 @@ import itertools
 import json
 import math
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -221,6 +248,19 @@ def smi(fields: str) -> str:
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def read_text(path) -> str:
+    with open(path) as f:
+        return f.read()
+
+
+def stop(proc) -> None:
+    """Kills ``proc``, started in a session of its own, and every process
+    it started, if it still runs."""
+    if proc.poll() is None:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1763,7 +1803,9 @@ def sharded_phase(workloads, bases, mines, scale=1.0, serve=None):
     (a) one NCCL rank, 1x1 meshes, full width; (e) the service on that
     rank's data mesh; (b) two gloo ranks on this card, 2x1 and 1x2;
     (d) a device loss on them; (c) the multi-host supervisor relaunching
-    one rank after a killed worker.  Every answer must equal phase 4's
+    one rank after a killed worker, started first and running beside (a),
+    (e), (b) and (d) (its processes share the host and the card with
+    theirs, so their walls include it).  Every answer must equal phase 4's
     ``perfect_hash`` SPC mine, every rank's kernel launches what its waves
     or ladder rows ask for.  ``scale`` is the workloads' (the supervisor
     generates its own BMS_WebView_2 at it, the service its stream), and
@@ -1780,7 +1822,25 @@ def sharded_phase(workloads, bases, mines, scale=1.0, serve=None):
     name, batch, cfg = serve_plans()[0][:3] if serve is None else (
         "T10I4D100K", *serve)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    sup = None
     try:
+        # (c) first: the supervisor relaunches one rank from the checkpoint.
+        support = dict((n, s) for n, s, _ in workloads)["BMS_WebView_2"]
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "src")
+        t_sup = time.perf_counter()
+        sup_out = [os.path.join(tmp, f"supervisor.{x}") for x in ("out", "err")]
+        with open(sup_out[0], "w") as fo, open(sup_out[1], "w") as fe:
+            sup = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.multihost",
+                 "--processes", "2", "--device", "cuda", "--backend", "gloo",
+                 "--dataset", "BMS_WebView_2", "--scale", str(scale),
+                 "--min-support", str(support), "--store", "packed_bitmap",
+                 "--max-k", "16", "--kill-k", "3", "--kill-process", "1",
+                 "--checkpoint-dir", os.path.join(tmp, "mh_ckpt"),
+                 "--timeout", "500"],
+                env=env, stdout=fo, stderr=fe, start_new_session=True)
         with open(os.path.join(tmp, "data.pkl"), "wb") as f:
             pickle.dump({name: (support, db) for name, support, db
                          in workloads}, f)
@@ -1850,25 +1910,13 @@ def sharded_phase(workloads, bases, mines, scale=1.0, serve=None):
                 and lost["injected"] == survivor["injected"]
                 == ["device_loss"]):
             raise AssertionError(f"elastic: {survivor} / {lost}")
-        # (c): the supervisor relaunches one rank from the checkpoint.
-        support = dict((n, s) for n, s, _ in workloads)["BMS_WebView_2"]
-        env = dict(os.environ)
-        env["PYTHONPATH"] = os.path.join(os.path.dirname(
-            os.path.abspath(__file__)), "src")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.multihost",
-             "--processes", "2", "--device", "cuda", "--backend", "gloo",
-             "--dataset", "BMS_WebView_2", "--scale", str(scale),
-             "--min-support", str(support), "--store", "packed_bitmap",
-             "--max-k", "16", "--kill-k", "3", "--kill-process", "1",
-             "--checkpoint-dir", os.path.join(tmp, "mh_ckpt"),
-             "--timeout", "500"],
-            env=env, capture_output=True, text=True, timeout=600)
-        sup_s = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"supervisor failed:\n{proc.stderr[-4000:]}")
-        line = next(x for x in proc.stdout.splitlines()
+        # (c): the supervisor's relaunch, started first.
+        sup.wait(timeout=600)
+        sup_s = time.perf_counter() - t_sup
+        stdout, stderr = map(read_text, sup_out)
+        if sup.returncode != 0:
+            raise AssertionError(f"supervisor failed:\n{stderr[-4000:]}")
+        line = next(x for x in stdout.splitlines()
                     if x.startswith("MULTIHOST_OK "))
         summary = json.loads(line[len("MULTIHOST_OK "):])
         result = summary.pop("result")
@@ -1901,6 +1949,8 @@ def sharded_phase(workloads, bases, mines, scale=1.0, serve=None):
                   f"({r.get('collective_ms_per_wave', 0):.3f} ms a wave)"
                   + (f", walls {r['walls']}" if "walls" in r else ""))
     finally:
+        if sup is not None:
+            stop(sup)
         shutil.rmtree(tmp, ignore_errors=True)
     out["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 8: {out['wall_s']:.1f} s")
@@ -3323,6 +3373,286 @@ def lm_sharding_phase():
     return out
 
 
+# -- phase 13: the dry run and one H100's share of the production count job ----
+
+# run_apriori_cell's defaults on pod1 (N 2^27, F 4,096, C 131,072, k 3) on a
+# data 16 x model 16 mesh: one device holds N/16 rows and C/16 candidates.
+P13_N, P13_F, P13_C, P13_K = 2 ** 23, 4096, 8192, 3
+P13_SLICE = 2 ** 18   # rows held to the plain count steps
+P13_DENSITY = 16      # of 256: each item in 1/16 of the rows
+P13_ROWS = 2 ** 20    # rows made and packed at a time
+P13_CELLS = {"apriori": ["--apriori"],
+             "train_4k": ["--arch", "qwen2-1.5b", "--shape", "train_4k"],
+             "decode_32k": ["--arch", "qwen2-1.5b", "--shape", "decode_32k"]}
+
+
+def shard_bytes(args) -> int:
+    """The bytes of one rank's shards of a step's stand-in arguments."""
+    from repro_torch.models.params import ShapeStruct, tree_leaves
+
+    total = 0
+    for a in args:
+        for leaf in tree_leaves(a):
+            if isinstance(leaf, ShapeStruct):
+                total += leaf.local.numel() * leaf.local.element_size()
+    return total
+
+
+def apriori_holds(rec):
+    """(flops a device, useful fraction, argument bytes) that
+    ``run_apriori_cell`` must report for its record ``rec``."""
+    n, f, c, k = 2 ** 27, 4096, 131_072, 3
+    pod2 = rec["multi_pod"]
+    n_local = n // (32 if pod2 else 16)
+    c_local = c if "candrep" in rec["shape"] else c // 16
+    b = 1 if rec["shape"].endswith("uint8") else 2
+    if rec["shape"].startswith("bitmap"):
+        return (2 * n_local * f * c_local,
+                1.0 if c_local < c else 1 / 16,
+                n_local * f * b + c_local * f * 2 + c_local * 4)
+    return 0.0, None, n_local * f * b + c_local * k * 4
+
+
+def pack_rows(bits):
+    """(rows, F) {0,1} -> (rows, F/32) int32 words, bit b of word w column
+    32 w + b (``core.stores.pack_bitmap``'s layout), on the card."""
+    import torch
+
+    n, f = bits.shape
+    lanes = bits.view(n, f // 32, 32)
+    words = torch.zeros((n, f // 32), dtype=torch.int64, device=bits.device)
+    for b in range(32):
+        words |= lanes[:, :, b].to(torch.int64) << b
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def count_share(sm_rate, int8_rate, seed=13):
+    """(b) One device's share of the production count job on the card: a
+    seeded (N, F) uint8 bitmap, its packed words and C k-hot candidates;
+    each kernel twice over the whole share (the path's launches: a warm-up,
+    then one timed by CUDA events), every count equal; then on the first
+    ``P13_SLICE`` rows
+    both kernels against the dry run's plain bf16 count step and its
+    ``perfect_hash`` gathers."""
+    import torch
+    from repro_torch.core.stores.packed_bitmap import pack_candidates_device
+    from repro_torch.kernels.support_count import (
+        launches, packed_support_count, reset_launches, support_count)
+    from repro_torch.launch.dryrun import bitmap_counts, hash_counts
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    n, f, c, k = P13_N, P13_F, P13_C, P13_K
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    bitmap = torch.empty((n, f), dtype=torch.uint8, device=dev)
+    packed = torch.empty((n, f // 32), dtype=torch.int32, device=dev)
+    for i in range(0, n, P13_ROWS):
+        bits = torch.randint(0, 256, (P13_ROWS, f), dtype=torch.uint8,
+                             device=dev, generator=gen) < P13_DENSITY
+        bitmap[i:i + P13_ROWS] = bits
+        packed[i:i + P13_ROWS] = pack_rows(bits)
+        del bits
+    cand = torch.rand((c, f), generator=gen, device=dev).argsort(
+        dim=1)[:, :k].sort(dim=1).values.to(torch.int32)
+    khot = torch.zeros((c, f), dtype=torch.int8, device=dev)
+    khot.scatter_(1, cand.long(), 1)
+    kvec = torch.full((c,), k, dtype=torch.int32, device=dev)
+    cpacked = pack_candidates_device(cand, f // 32)
+    torch.cuda.synchronize()
+    make_s = time.perf_counter() - t0
+
+    def timed(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    reset_launches()  # each kernel twice: a warm-up, then the timed call
+    k2, _ = timed(lambda: support_count(bitmap, khot, kvec))
+    k2_again, k2_ms = timed(lambda: support_count(bitmap, khot, kvec))
+    k1, _ = timed(lambda: packed_support_count(packed, cpacked, kvec))
+    k1_again, k1_ms = timed(lambda: packed_support_count(packed, cpacked, kvec))
+    counts = dict(launches)
+    share_equal = all(bool(torch.equal(x, k2)) for x in (k2_again, k1,
+                                                         k1_again))
+    s = P13_SLICE
+    plain, plain_ms = timed(lambda: bitmap_counts(bitmap[:s], khot, kvec))
+    hashed, hash_ms = timed(lambda: hash_counts(bitmap[:s], cand))
+    slice_equal = all(bool(torch.equal(x, plain)) for x in (
+        hashed, support_count(bitmap[:s], khot, kvec),
+        packed_support_count(packed[:s], cpacked, kvec)))
+    w = f // 32
+    k2_ops, k1_ops = 2 * n * f * c / int8_rate, n * c * w / sm_rate
+    k2_bytes = (n * f + c * f + 2 * c * 4) / HBM_BYTES_PER_S
+    k1_bytes = (n * w * 4 + c * w * 4 + 2 * c * 4) / HBM_BYTES_PER_S
+    rec = {"n": n, "f": f, "c": c, "k": k, "density": P13_DENSITY / 256,
+           "bitmap_bytes": bitmap.numel(), "packed_bytes": packed.numel() * 4,
+           "make_s": make_s, "support_count_ms": k2_ms,
+           "packed_support_count_ms": k1_ms,
+           "support_count_bound_ms": max(k2_ops, k2_bytes) * 1e3,
+           "packed_support_count_bound_ms": max(k1_ops, k1_bytes) * 1e3,
+           "slice_rows": s, "plain_bf16_slice_ms": plain_ms,
+           "perfect_hash_slice_ms": hash_ms,
+           "support_min": int(k2.min()), "support_mean": float(k2.float().mean()),
+           "support_max": int(k2.max()), "share_equal": share_equal,
+           "slice_equal": slice_equal, "launches": counts}
+    del bitmap, packed, khot, cand, cpacked, k1, k2, k1_again, k2_again
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (share_equal and slice_equal and rec["support_min"] > 0):
+        raise AssertionError(f"count share: kernels disagree {rec}")
+    return rec, {"count_share": counts}
+
+
+def phase13_worker(out_path: str) -> int:
+    """(c) The dry run against the card on one rank (its own process: it
+    makes a one-rank NCCL group): phase 10 (a)'s qwen2-1.5b step.  The
+    prediction runs on the host while (b) holds the card; a line on
+    standard input says that (b) is done and the real steps may start."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(root, "src"))
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import one_rank_check
+    from repro_torch.train.optimizer import OptConfig
+
+    rec = one_rank_check(get_config("qwen2-1.5b"), 8, 1024,
+                         OptConfig(lr=3e-5, total_steps=4, warmup_steps=1),
+                         device="cuda", steps=2, ready=sys.stdin.readline)
+    with open(out_path, "w") as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def start_dryrun_cells(root, tmp):
+    """Phase 13 (a): starts the dry run's cells, each its own process (the
+    fake group is process-wide), their output in files under ``tmp``.
+    Started before phase 10, they run on the host beside phases 10-12."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    procs = {}
+    for name, extra in P13_CELLS.items():
+        with open(os.path.join(tmp, f"{name}.out"), "w") as out, \
+                open(os.path.join(tmp, f"{name}.err"), "w") as err:
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun"] + extra,
+                stdout=out, stderr=err, env=env, cwd=root,
+                start_new_session=True)
+    return procs
+
+
+def dryrun_phase(root, tmp, procs, sm_rate, int8_rate, train):
+    """Phase 13: (b) counts one device's share on the card while (c)'s
+    process predicts its step on the host, then (c) runs that step on the
+    card; (a)'s cells, started by ``start_dryrun_cells`` as ``procs``
+    (output in ``tmp``), are collected and held last."""
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out_path = os.path.join(tmp, "one_rank.json")
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "one_rank.err"), "w") as err:
+        worker = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--phase13-worker",
+             out_path], stdin=subprocess.PIPE, stdout=err, stderr=err,
+            env=env, cwd=root, text=True, start_new_session=True)
+    try:
+        share, paths = count_share(sm_rate, int8_rate)
+        try:
+            worker.stdin.write("go\n")
+            worker.stdin.close()
+        except BrokenPipeError:  # it has failed: its error is read below
+            pass
+        if worker.wait(timeout=900) != 0:
+            err = read_text(os.path.join(tmp, "one_rank.err"))
+            raise AssertionError(f"phase 13 (c) failed: {err[-3000:]}")
+    finally:
+        stop(worker)
+    with open(out_path) as f:
+        one = json.load(f)
+    one["wall_s"] = time.perf_counter() - t0
+    cells = {}
+    for name, proc in procs.items():
+        if proc.wait(timeout=900) != 0:
+            err = read_text(os.path.join(tmp, f"{name}.err"))
+            raise AssertionError(f"dry run {name} failed: {err[-3000:]}")
+        cells[name] = [json.loads(x) for x in read_text(os.path.join(
+            tmp, f"{name}.out")).splitlines() if x.startswith("{")]
+    card = smi("name,power.limit")
+    for name, recs in cells.items():
+        for rec in recs:
+            print(f"dryrun {name}: {json.dumps(rec)}")
+
+    # (a) holds
+    bad = []
+    for rec in cells["apriori"]:
+        flops, frac, args = apriori_holds(rec)
+        if (rec["flops_per_device"] != flops
+                or rec["useful_flops_fraction"] != frac
+                or rec["memory"]["argument_bytes"] != args):
+            bad.append(rec["shape"])
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import default_rules
+    from repro_torch.launch.steps import make_step
+    from repro_torch.models.params import StandInMesh
+
+    mesh = StandInMesh((16, 16), ("data", "model"))
+    for shape in ("train_4k", "decode_32k"):
+        _, args, _ = make_step(get_config("qwen2-1.5b"), shape, mesh,
+                               default_rules())
+        (rec,) = cells[shape]
+        if rec["memory"]["argument_bytes"] != shard_bytes(args):
+            bad.append(shape)
+    # (b) beside the dry run's per-device terms of the same cell
+    cell = {r["shape"].split("_N")[0]: r for r in cells["apriori"]
+            if not r["multi_pod"] and r["shape"].endswith("candshard_uint8")}
+    dry = cell["bitmap"]
+    print(f"count share ({card}): N {P13_N} x F {P13_F} uint8 bitmap "
+          f"({share['bitmap_bytes'] / 1e9:.1f} GB) and its packed words "
+          f"({share['packed_bytes'] / 1e9:.2f} GB), C {P13_C} candidates, k "
+          f"{P13_K}, density {share['density']}: made in "
+          f"{share['make_s']:.2f} s; support_count "
+          f"{share['support_count_ms']:.2f} ms (bound "
+          f"{share['support_count_bound_ms']:.2f} ms, int8 operations), "
+          f"packed_support_count {share['packed_support_count_ms']:.2f} ms "
+          f"(bound {share['packed_support_count_bound_ms']:.2f} ms, POPC), "
+          f"equal {share['share_equal']}; supports {share['support_min']}-"
+          f"{share['support_max']}, mean {share['support_mean']:.1f}; the "
+          f"dry run's cell {dry['shape']} a device: t_compute "
+          f"{dry['t_compute_s'] * 1e3:.2f} ms, t_memory "
+          f"{dry['t_memory_s'] * 1e3:.2f} ms (eager, unfused); perfect_hash "
+          f"cell t_memory {cell['perfect_hash']['t_memory_s'] * 1e3:.2f} ms; "
+          f"first {P13_SLICE} rows: plain bf16 {share['plain_bf16_slice_ms']:.2f}"
+          f" ms, perfect_hash gathers {share['perfect_hash_slice_ms']:.2f} ms,"
+          f" all four equal {share['slice_equal']}")
+    # (c) holds and prints
+    exact = (one["predicted_flops"] == one["flops"]
+             and one["predicted_argument_bytes"] == one["placed_bytes"])
+    p10 = train["step_ms_median_2_on"]
+    print(f"dry run vs the card, one rank ({card}): qwen2-1.5b train step "
+          f"{one['batch']} x {one['seq']} on a (1, 1) mesh: flops predicted "
+          f"{one['predicted_flops']:.6e}, FlopCounterMode {one['flops']:.6e}; "
+          f"argument bytes predicted {one['predicted_argument_bytes']}, "
+          f"placed {one['placed_bytes']}; peak predicted "
+          f"{one['predicted_peak_bytes'] / 1e9:.3f} GB, measured "
+          f"{one['peak_bytes'] / 1e9:.3f} GB (phase 10: "
+          f"{train['peak_bytes'] / 1e9:.3f} GB); step_time_bound "
+          f"{one['step_time_bound_s'] * 1e3:.1f} ms ({one['bottleneck']}), "
+          f"measured {[round(x, 1) for x in one['step_ms']]} ms on the mesh, "
+          f"{p10:.1f} ms in phase 10; measured in {one['measure_s']:.1f} s")
+    wall = time.perf_counter() - t_phase
+    print(f"phase 13: {wall:.1f} s")
+    if bad or not exact:
+        raise AssertionError(f"phase 13: dry run holds failed {bad} {one}")
+    return {"card": card, "cells": cells, "share": share, "one_rank": one,
+            "wall_s": wall}, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every number to this JSON file")
@@ -3330,11 +3660,15 @@ def main() -> int:
                     help=argparse.SUPPRESS)  # one rank of a phase-8 cluster
     ap.add_argument("--phase12-worker", metavar="SPEC",
                     help=argparse.SUPPRESS)  # one rank of phase 12's world
+    ap.add_argument("--phase13-worker", metavar="OUT",
+                    help=argparse.SUPPRESS)  # phase 13 (c)'s one rank
     args = ap.parse_args()
     if args.phase8_worker:
         return phase8_worker(args.phase8_worker)
     if args.phase12_worker:
         return phase12_worker(args.phase12_worker)
+    if args.phase13_worker:
+        return phase13_worker(args.phase13_worker)
 
     import torch
 
@@ -3417,16 +3751,36 @@ def main() -> int:
     # stream through both kernels.
     lm, lm_paths = lm_phase()
     by_path.update(lm_paths)
-    # Phase 10: LM training on the card; the example's token-set mine
-    # counts through the bitmap kernel.
-    train, train_paths = train_phase(root)
-    by_path.update(train_paths)
-    # Phase 11: the remaining mixers (RG-LRU, SSD, MLA, MoE, cross) at
-    # full width; no kernel lies on their path.
-    mixers = mixers_phase()
-    # Phase 12: the LM on a data x model mesh of two gloo ranks sharing the
-    # card; no kernel lies on its path.
-    lm_sharding = lm_sharding_phase()
+    # Phase 13 (a)'s dry-run cells start here and run on the host beside
+    # phases 10-12: phase 10's steps are device-bound, while phase 12's
+    # decode is host-bound and slows with them beside it.
+    import shutil
+    import tempfile
+
+    p13_tmp = tempfile.mkdtemp(prefix="chip_smoke_p13_")
+    p13_cells = start_dryrun_cells(root, p13_tmp)
+    try:
+        # Phase 10: LM training on the card; the example's token-set mine
+        # counts through the bitmap kernel.
+        train, train_paths = train_phase(root)
+        by_path.update(train_paths)
+        # Phase 11: the remaining mixers (RG-LRU, SSD, MLA, MoE, cross) at
+        # full width; no kernel lies on their path.
+        mixers = mixers_phase()
+        # Phase 12: the LM on a data x model mesh of two gloo ranks
+        # sharing the card; no kernel lies on its path.
+        lm_sharding = lm_sharding_phase()
+        # Phase 13: the dry run on fake production meshes, one device's
+        # share of the production count job through both kernels, and the
+        # dry run against the card on one rank.
+        dryrun, dryrun_paths = dryrun_phase(root, p13_tmp, p13_cells,
+                                            sm_rate, int8_rate,
+                                            train["full_width"])
+    finally:
+        for proc in p13_cells.values():
+            stop(proc)
+        shutil.rmtree(p13_tmp, ignore_errors=True)
+    by_path.update(dryrun_paths)
     # Host phases of the T10I4D100K mine that no JobProfile row holds: the
     # ingest pass and the speculative C3 generated while C2 counts.
     from repro_torch.core.itemsets import apriori_gen_matrix
@@ -3457,7 +3811,7 @@ def main() -> int:
                        "serve": {"runs": serve_runs, "cli_s": cli_s},
                        "hadoop": hadoop, "sharded": sharded, "lm": lm,
                        "train": train, "mixers": mixers,
-                       "lm_sharding": lm_sharding,
+                       "lm_sharding": lm_sharding, "dryrun": dryrun,
                        "device": device,
                        "wall_s": time.perf_counter() - t_start}, f, indent=1)
     print(json.dumps({"kernels": rows}))

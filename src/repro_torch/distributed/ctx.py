@@ -341,12 +341,15 @@ def local_region():
 
 
 def local_offset(x) -> Tuple[int, ...]:
-    """Where this rank's shard of the DTensor ``x`` starts, per dim."""
+    """Where this rank's shard of the DTensor ``x`` starts, per dim (the
+    index arithmetic runs on real tensors, also under ``FakeTensorMode``)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor._utils import (
         compute_local_shape_and_global_offset)
 
-    return tuple(compute_local_shape_and_global_offset(
-        x.shape, x.device_mesh, x.placements)[1])
+    with unset_fake_temporarily():
+        return tuple(compute_local_shape_and_global_offset(
+            x.shape, x.device_mesh, x.placements)[1])
 
 
 def recompute_context(context_fn=None):

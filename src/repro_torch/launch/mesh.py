@@ -35,9 +35,10 @@ def _world(device):
     dev = resolve_device(device)
     if not dist.is_initialized():
         init_group(f"127.0.0.1:{find_free_port()}", 1, 0, device=dev)
-    elif dev.type == "cpu" and dist.get_backend() != "gloo":
-        raise ValueError(f"a CPU mesh needs a gloo process group, this one "
-                         f"is {dist.get_backend()}")
+    elif dev.type == "cpu" and dist.get_backend() not in ("gloo", "fake"):
+        raise ValueError(f"a CPU mesh needs a gloo process group (or the "
+                         f"dry run's fake one), this one is "
+                         f"{dist.get_backend()}")
     return dev.type, dist.get_world_size()
 
 

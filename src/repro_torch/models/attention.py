@@ -28,7 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.ctx import (
     active_sharding, as_dtensor, constrain, local_offset, local_region,
     write_seq)
-from repro_torch.models.layers import _matmul, rope
+from repro_torch.models.layers import _matmul, flat, rope
 from repro_torch.models.params import spec
 
 NEG_INF = -2.0**30
@@ -276,8 +276,9 @@ def gqa_project_qkv(params, x, kv_x=None, positions=None, cfg: ModelConfig = Non
 
 
 def gqa_output(params, attn_out):
-    wo = params["wo"]
-    return attn_out.reshape(*attn_out.shape[:-2], -1) @ wo.reshape(-1, wo.shape[-1])
+    """(..., h, hd) heads through ``wo`` (h, hd, d); both flattens give
+    gradients that unflatten on a mesh (``layers.flat``)."""
+    return flat(attn_out, attn_out.ndim - 2) @ flat(params["wo"], 0)
 
 
 # ---------------------------------------------------------------------------
@@ -318,7 +319,10 @@ def mla_latent(params, x, positions, cfg: ModelConfig):
 
 def mla_queries(params, x, positions, cfg: ModelConfig):
     m = cfg.mla
-    q_a = _norm(x @ params["wq_a"], params["q_norm"])
+    # whole rows into the norm: DTensor would split the product's columns
+    # over ``model``, and the norm's backward would then split the sequence
+    q_a = _norm(constrain(x @ params["wq_a"], "batch", None, None),
+                params["q_norm"])
     q = constrain(_matmul(q_a, params["wq_b"]), "batch", None, "heads", None)
     q_nope, q_rope = q[..., : m.nope_head_dim], q[..., m.nope_head_dim :]
     q_rope = rope(q_rope, positions, cfg.rope_theta)

@@ -117,7 +117,11 @@ def _gated(lp, t_out):
 
 def _channel(lp, x, t_out, channel, cfg):
     """Residual add of the temporal output, then the channel mixer's.
-    Returns (x, the MoE aux loss or None)."""
+    Returns (x, the MoE aux loss or None).  On a mesh each output is whole
+    rows before it joins the residual stream (a row-parallel product's
+    pending sum is all-reduced there): a stream or gradient split along the
+    sequence could not be flattened by the next product."""
+    t_out = constrain(t_out, "batch", None, None)
     if cfg.post_norms:
         t_out = L.rmsnorm(lp["post_ln1"], t_out)
     x = x + t_out
@@ -128,6 +132,7 @@ def _channel(lp, x, t_out, channel, cfg):
             c_out = L.mlp(lp["mlp"], h, cfg)
         else:
             c_out, aux = moe_mod.moe_layer(lp["moe"], h, cfg)
+        c_out = constrain(c_out, "batch", None, None)
         if cfg.post_norms:
             c_out = L.rmsnorm(lp["post_ln2"], c_out)
         x = x + c_out

@@ -17,8 +17,81 @@ from repro_torch.models.params import spec
 
 
 def _matmul(x, w):
-    """``einsum("...d,d...->...", x, w)``: x's last axis against w's first."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+    """``einsum("...d,d...->...", x, w)``: x's last axis against w's first.
+
+    On a mesh DTensor may shard the product's flattened width ``w.shape[1]
+    * ...`` over a mesh axis that ``w.shape[1]`` (12 heads on a 16-wide
+    ``model`` axis) does not divide, and that width cannot be unflattened:
+    the product then replicates along that axis first, as the rules
+    replicate the unflattened dim; so does the flattened weight's
+    gradient (``flat``)."""
+    w2 = flat(w, 1) if w.ndim > 2 else w
+    y = x @ w2
+    if w.ndim > 2 and _is_dtensor(y):
+        y = _unflattenable(y, w.shape[1], y.ndim - 1)
+    return y.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def flat(t, dim: int):
+    """``t`` with dims ``dim`` and ``dim + 1`` merged (for 3-D weights and
+    head outputs: dim + 1 is the last but for ``wo``'s (h, hd, d)).  On a
+    mesh the gradient that comes back is made legal to unflatten into
+    ``t.shape[dim]`` (``_unflattenable``), whatever DTensor split."""
+    out = t.flatten(dim, dim + 1)
+    if _is_dtensor(out) and out.requires_grad:
+        lead = t.shape[dim]
+        out = _GradFix.apply(out, lambda g: _unflattenable(g, lead, dim))
+    return out
+
+
+def placed_grad(w):
+    """``w``, whose gradient comes back placed as ``w`` is (a pending sum
+    reduced onto ``w``'s shards).  A weight used twice (the tied
+    embedding: the lookup and the logits) then adds its two gradients in
+    one placement; DTensor cannot always move one of them to the other's
+    (torch 2.11 refuses a split to a pending sum)."""
+    if not (_is_dtensor(w) and w.requires_grad):
+        return w
+    mesh, placements = w.device_mesh, w.placements
+    return _GradFix.apply(w, lambda g: g.redistribute(mesh, placements))
+
+
+class _GradFix(torch.autograd.Function):
+    """The identity, whose backward applies ``fix`` to the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, fix):
+        ctx.fix = fix
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.fix(g), None
+
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _unflattenable(y, lead: int, dim: int):
+    """``y`` with dim ``dim`` replicated on each mesh axis that shards it
+    but does not divide ``lead``, the leading size it unflattens into."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = y.device_mesh
+    split = 1
+    want = list(y.placements)
+    for i, p in enumerate(want):
+        if isinstance(p, Shard) and p.dim == dim:
+            if lead % (split * mesh.size(i)):
+                want[i] = Replicate()
+            else:
+                split *= mesh.size(i)
+    if want == list(y.placements):
+        return y
+    return y.redistribute(mesh, want)
 
 
 # -- rmsnorm ---------------------------------------------------------------
@@ -43,11 +116,12 @@ def embedding_abstract(cfg: ModelConfig):
 
 
 def embed(params, tokens):
-    return constrain(F.embedding(tokens, params["table"]), "batch", None, None)
+    table = placed_grad(params["table"])
+    return constrain(F.embedding(tokens, table), "batch", None, None)
 
 
 def unembed(params, x, softcap: Optional[float] = None):
-    logits = (x @ params["table"].T).float()
+    logits = (x @ placed_grad(params["table"]).T).float()
     if softcap is not None:
         logits = torch.tanh(logits / softcap) * softcap
     return logits

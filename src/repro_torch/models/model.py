@@ -118,6 +118,9 @@ def loss_fn(params, batch, cfg: ModelConfig, aux_coef: float = 0.01,
     Returns (total, {"ce", "aux"}).
     """
     x, aux = forward(params, batch, cfg)
+    # On a mesh the last layer may leave x split along the sequence, which
+    # the chunks' flatten cannot carry: whole rows, as each layer starts.
+    x = constrain(x, "batch", None, None)
     labels = batch["labels"]
     s = x.shape[1]
     seq_chunk = min(seq_chunk, s)

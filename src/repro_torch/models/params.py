@@ -206,6 +206,16 @@ def local_shape(shape: Sequence[int], pspec: tuple, mesh) -> Tuple[int, ...]:
     return tuple(out)
 
 
+class StandInMesh:
+    """A mesh's axis sizes and names without a process group: all that
+    ``logical_to_pspec``, ``placements`` and ``shape_structs`` read (a
+    production mesh sized on a box that has none)."""
+
+    def __init__(self, sizes: Sequence[int], names: Sequence[str]):
+        self.shape = dict(zip(names, sizes))
+        self.mesh_dim_names = tuple(names)
+
+
 @dataclasses.dataclass(frozen=True)
 class ShapeStruct:
     """A leaf placed on a mesh without memory: the meta tensor of its
@@ -228,8 +238,8 @@ def shape_structs(tree, mesh=None, rules: Optional[dict] = None,
                   dtype_override: Optional[torch.dtype] = None):
     """Meta tensors of every leaf's global shape; with ``mesh`` and
     ``rules``, a ``ShapeStruct`` per leaf that also holds its spec and its
-    per-rank shard.  ``mesh`` may be a stand-in whose ``shape`` maps axis
-    names to sizes: nothing here touches a process group."""
+    per-rank shard.  ``mesh`` may be a ``StandInMesh``: nothing here
+    touches a process group."""
     def one(s: ParamSpec):
         dt = dtype_override or s.dtype
         glob = torch.empty(s.shape, dtype=dt, device="meta")

@@ -19,7 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.ctx import constrain
+from repro_torch.distributed.ctx import (
+    active_sharding, as_dtensor, constrain, local_region)
 from repro_torch.models.params import spec
 
 
@@ -51,7 +52,9 @@ def ssd_abstract(cfg: ModelConfig):
 
 def _split_proj(params, u, cfg):
     d_inner, h, p, n = _dims(cfg)
-    zxbcdt = u @ params["w_in"]
+    # split from whole rows: slicing the ``state``-split width gathers it
+    # anyway, and a sliced gradient could come back split along the sequence
+    zxbcdt = constrain(u @ params["w_in"], "batch", None, None)
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner : 2 * d_inner + 2 * n]
     dt = zxbcdt[..., 2 * d_inner + 2 * n :]
@@ -107,7 +110,44 @@ def ssd_scan(params, u, cfg: ModelConfig):
     da = dt * a                                        # (B,S,H) log-decay
     dx = (x * dt[..., None].to(x.dtype)).float()
 
-    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=u.device)
+    y, state = _chunks(da, dx, bmat, cmat, q)
+    y = y + params["d_skip"][:, None] * x.float()
+    y = y.reshape(b, seqlen, d_inner)[:, :true_len]
+    y = _gated_norm(params, y, z[:, :true_len])
+    out = y.to(u.dtype) @ params["w_out"]
+    return out, state, xbc_in[:, :true_len]
+
+
+def _chunks(da, dx, bmat, cmat, q: int):
+    """The chunked scan: (y (B, S, H, P) f32, final state (B, H, P, N)).
+    On a mesh each rank scans its own batch rows and heads (every head and
+    row is independent) on plain tensors, so the scan itself issues no
+    collective: DTensor's einsums would flatten (B, H) split over two mesh
+    axes."""
+    if active_sharding() is None:
+        return _scan(da, dx, bmat, cmat, q)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dx = constrain(dx, "batch", None, "state", None)
+    mesh, pl = dx.device_mesh, dx.placements
+    rows = [p if p == Shard(0) else Replicate() for p in pl]
+    da = as_dtensor(da, mesh).redistribute(mesh, pl)
+    # B and C are shared by every head: where the heads are split, each
+    # rank's gradient of them is its heads' share of a sum
+    shared = [Partial() if p == Shard(2) else r for p, r in zip(pl, rows)]
+    bmat, cmat = (as_dtensor(t, mesh).redistribute(mesh, rows).to_local(
+        grad_placements=shared) for t in (bmat, cmat))
+    with local_region():
+        y, state = _scan(da.to_local(), dx.to_local(), bmat, cmat, q)
+    spl = [Shard(1) if p == Shard(2) else p for p in pl]
+    return (DTensor.from_local(y, mesh, pl, run_check=False),
+            DTensor.from_local(state, mesh, spl, run_check=False))
+
+
+def _scan(da, dx, bmat, cmat, q: int):
+    b, seqlen, h, p = dx.shape
+    n = bmat.shape[-1]
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=dx.device)
     ys = []
     for c in range(seqlen // q):
         sl = slice(c * q, (c + 1) * q)
@@ -126,12 +166,7 @@ def ssd_scan(params, u, cfg: ModelConfig):
         state = state * torch.exp(dsum)[..., None, None] + torch.einsum(
             "bsn,bshp->bhpn", bc, xc * decay_states[..., None])
         ys.append(y_diag + y_off)
-    y = torch.cat(ys, dim=1)                           # (B,S,H,P)
-    y = y + params["d_skip"][:, None] * x.float()
-    y = y.reshape(b, seqlen, d_inner)[:, :true_len]
-    y = _gated_norm(params, y, z[:, :true_len])
-    out = y.to(u.dtype) @ params["w_out"]
-    return out, state, xbc_in[:, :true_len]
+    return torch.cat(ys, dim=1), state                 # (B,S,H,P)
 
 
 def ssd_layer(params, u, cfg: ModelConfig) -> torch.Tensor:

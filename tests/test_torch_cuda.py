@@ -848,3 +848,32 @@ def test_moe_layer_on_card_matches_cpu(cuda):
             assert abs(float(ag) - float(ac)) <= 1e-4 * abs(float(ac))
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+_ONE_RANK = """
+import dataclasses, json
+from repro_torch.configs import get_reduced
+from repro_torch.launch import dryrun as D
+cfg = dataclasses.replace(get_reduced("qwen2-1.5b"), n_layers=3)
+print(json.dumps(D.one_rank_check(cfg, 2, 128, device="cuda", steps=1)))
+"""
+
+
+def test_dry_run_on_one_rank_of_the_card(cuda):
+    """``chip_smoke.py`` phase 13 (c) at a small shape, in a subprocess (it
+    makes a one-rank NCCL group): on a (1, 1) mesh of the card the dry
+    run's flops equal ``FlopCounterMode`` over the real step, and its
+    argument bytes the bytes of the tensors placed on the card, exactly."""
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-c", _ONE_RANK], env=env,
+                         cwd=root, capture_output=True, text=True,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["device"] == "cuda"
+    assert rec["predicted_flops"] == rec["flops"] > 0
+    assert rec["predicted_argument_bytes"] == rec["placed_bytes"] > 0
+    assert rec["peak_bytes"] >= rec["placed_bytes"]

@@ -42,7 +42,7 @@ def test_port_imports_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad, subs = out.stdout.strip().split("|")
-    assert int(n_modules) >= 80  # every module: a dropped one shows
+    assert int(n_modules) >= 84  # every module: a dropped one shows
     assert bad == "", f"port pulled in: {bad}"
     # The LM's subpackages, its pipeline, engine and training are among them.
     assert {"analytics", "configs", "models", "serve", "data",
@@ -162,21 +162,37 @@ def _public(mod, pkg):
 
 
 def test_port_offers_the_reference_public_names():
-    pytest.importorskip("jax")
+    jax = pytest.importorskip("jax")
     import repro_torch
 
+    # ``repro.launch.dryrun`` sets XLA_FLAGS (512 forced host devices) when
+    # imported.  Bring this process's JAX backend up first, so that its
+    # device count is fixed, and restore the variable after, so that no
+    # later JAX subprocess of this worker inherits it.
+    jax.devices()
+    saved = os.environ.get("XLA_FLAGS")
     checked = []
-    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
-        ref_name = "repro" + info.name[len("repro_torch"):]
-        try:
-            ref = importlib.import_module(ref_name)
-        except ImportError:
-            continue  # port-only module (e.g. the kernel build)
-        port = importlib.import_module(info.name)
-        missing = {n for n in _public(ref, "repro") - _public(port, "repro_torch")
-                   if n not in _UNPORTED
-                   and (info.name, n) not in _IMPORTED_ONLY}
-        assert not missing, f"{info.name} lacks {sorted(missing)}"
-        checked.append(info.name)
-    assert len(checked) >= 41
+    try:
+        for info in pkgutil.walk_packages(repro_torch.__path__,
+                                          "repro_torch."):
+            ref_name = "repro" + info.name[len("repro_torch"):]
+            try:
+                ref = importlib.import_module(ref_name)
+            except ImportError:
+                continue  # port-only module (e.g. the kernel build)
+            port = importlib.import_module(info.name)
+            missing = {n for n in _public(ref, "repro")
+                       - _public(port, "repro_torch")
+                       if n not in _UNPORTED
+                       and (info.name, n) not in _IMPORTED_ONLY}
+            assert not missing, f"{info.name} lacks {sorted(missing)}"
+            checked.append(info.name)
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
+    assert len(checked) >= 45
     assert "repro_torch.distributed.sharding" in checked
+    assert {f"repro_torch.launch.{m}" for m in
+            ("steps", "specs", "dryrun", "hlo_stats")} <= set(checked)

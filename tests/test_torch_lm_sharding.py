@@ -2,7 +2,7 @@
 
 * ``logical_to_pspec`` gives the reference's spec for every parameter and
   cache leaf of all ten configs at full width, on stand-in meshes
-  (``_FakeMesh``: only the axis sizes are read) of {data 16, model 16},
+  (``StandInMesh``: only the axis sizes are read) of {data 16, model 16},
   {pod 2, data 16, model 16} and {data 2, model 2}, under the default
   rules, ``fsdp=False`` and ``context_parallel=True``.  The port holds one
   tree per layer where the reference stacks the scanned layers: a port
@@ -40,19 +40,11 @@ from repro_torch.distributed.elastic import elastic_grid  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.models.params import (  # noqa: E402
-    ShapeStruct, logical_to_pspec, materialize, placements, shape_structs,
-    shardings, tree_leaves)
+    ShapeStruct, StandInMesh, logical_to_pspec, materialize, placements,
+    shape_structs, shardings, tree_leaves)
 from repro_torch.serve.lm import ServeEngine  # noqa: E402
 from repro_torch.train.optimizer import OptConfig  # noqa: E402
 from repro_torch.train.trainer import Trainer, TrainerConfig  # noqa: E402
-
-
-class _FakeMesh:
-    """Only the axis sizes (``shape``) and names are consulted."""
-
-    def __init__(self, **sizes):
-        self.shape = dict(sizes)
-        self.mesh_dim_names = tuple(sizes)
 
 
 MESHES = {
@@ -138,7 +130,7 @@ def _check_tree(ref_tree, port_tree, cfg, jrules, trules, mesh):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_logical_to_pspec_matches_reference(arch, mesh_name, variant):
     jcfg, tcfg = j_config(arch), get_config(arch)
-    mesh = _FakeMesh(**MESHES[mesh_name])
+    mesh = StandInMesh(MESHES[mesh_name].values(), MESHES[mesh_name])
     jrules, trules = _rules(mesh_name, variant)
     _check_tree(JM.abstract_params(jcfg), TM.abstract_params(tcfg), tcfg,
                 jrules, trules, mesh)
@@ -168,19 +160,19 @@ def test_rules_and_activation_specs_match_reference(multi_pod):
 def test_placements_and_shape_structs():
     from torch.distributed.tensor import Replicate, Shard
 
-    mesh = _FakeMesh(pod=2, data=16, model=16)
+    mesh = StandInMesh((2, 16, 16), ("pod", "data", "model"))
     assert placements((("pod", "data"), None, "model"), mesh) == (
         Shard(0), Shard(0), Shard(2))
     assert placements((None, "data"), mesh) == (
         Replicate(), Shard(1), Replicate())
     # a mesh axis of size 1 replicates
-    assert placements(("data", "model"), _FakeMesh(data=1, model=2)) == (
-        Replicate(), Shard(1))
+    one_two = StandInMesh((1, 2), ("data", "model"))
+    assert placements(("data", "model"), one_two) == (Replicate(), Shard(1))
 
     cfg = get_config("qwen2-1.5b")
     abstract = TM.abstract_params(cfg)
     rules = TS.default_rules().rules
-    two = _FakeMesh(data=16, model=16)
+    two = StandInMesh((16, 16), ("data", "model"))
     plain = shape_structs(abstract)
     assert plain["embed"]["table"].device.type == "meta"
     assert tuple(plain["embed"]["table"].shape) == (151_936, 1536)
