@@ -21,7 +21,10 @@ result line) when it fails:
    (C larger than a
    tile, mixed k with pad rows, N split across blocks, a W >= 128
    vocabulary, F % 16 != 0); kernel, plain and library times beside the
-   least time the card could take;
+   least time the card could take (for the packed kernel the int8
+   tensor-core bound it now works to, beside the POPC bound of its
+   earlier design, and which of its paths ran), at the main, ladder and
+   serving shapes (one row, the slot's tail, a full row block);
 3. small mines on the card against brute-force counting: SPC through every
    store (the kernel stores with the kernel on and off) and the level
    ladder (``device_loop=True``) through every store;
@@ -394,32 +397,39 @@ def bitmap_sweep(enc, khot, kvec, int8_rate):
     return out
 
 
-def time_packed_shape(a, b, kv, sm_rate):
+def time_packed_shape(a, b, kv, sm_rate, int8_rate):
     """Times of the packed kernel and its plain version at one shape (no
-    single PyTorch call computes the same function)."""
+    single PyTorch call computes the same function).  Its bound is the int8
+    tensor-core operations over the unpacked bits, 2 N C 32 W, which it
+    issues; the POPC bound (N C W popcounts at 16/clk/SM) is the SIMT
+    design's, kept beside it."""
     from repro_torch.kernels.support_count import (
-        packed_support_count, packed_support_count_ref)
+        packed_support_count, packed_support_count_ref, packed_variant)
 
     n, c, width = a.shape[0], b.shape[0], a.shape[1]
     io_bytes = (a.numel() * a.element_size() + b.numel() * b.element_size()
                 + 2 * c * 4)
-    ops_s = n * c * width / sm_rate
+    ops_s = 2 * n * c * 32 * width / int8_rate
     bytes_s = io_bytes / HBM_BYTES_PER_S
-    row = {"n": n, "c": c, "width": width,
+    popc_s = n * c * width / sm_rate
+    row = {"n": n, "c": c, "width": width, "variant": packed_variant(width),
            "ms": cuda_ms(lambda: packed_support_count(a, b, kv), reps=20),
            "plain_ms": cuda_ms(lambda: packed_support_count_ref(a, b, kv),
                                reps=3, warmup=1),
            "bound_ms": max(bytes_s, ops_s) * 1e3,
            "bound_by": "operations" if ops_s >= bytes_s else "bytes",
+           "popc_bound_ms": max(bytes_s, popc_s) * 1e3,
            "library_ms": None}
     row["device_ms"], row["host_call_ms"] = profiled_ms(
         lambda: packed_support_count(a, b, kv), "packed_support_count")
-    print(f"time packed_support_count n={n} c={c} width={width}: kernel "
-          f"{row['ms']:.4f} ms ({100 * row['bound_ms'] / row['ms']:.1f} % of "
-          f"bound {row['bound_ms']:.4f} ms, {row['bound_by']}), plain "
-          f"{row['plain_ms']:.4f} ms, library none; profiler device "
-          f"{row['device_ms']} ms per launch, host {row['host_call_ms']:.4f} "
-          "ms per call")
+    dev_ms = row["device_ms"] or row["ms"]
+    print(f"time packed_support_count n={n} c={c} width={width} "
+          f"({row['variant']}): kernel {row['ms']:.4f} ms, profiler device "
+          f"{row['device_ms']} ms per launch ({100 * row['bound_ms'] / dev_ms:.1f}"
+          f" % of the int8 bound {row['bound_ms']:.4f} ms, {row['bound_by']}; "
+          f"POPC bound {row['popc_bound_ms']:.4f} ms), plain "
+          f"{row['plain_ms']:.4f} ms, library none; host "
+          f"{row['host_call_ms']:.4f} ms per call")
     return row
 
 
@@ -573,15 +583,16 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
             keys.append("library_int8_ms")
         else:
             def timed(args):
-                return time_packed_shape(*args, sm_rate)
+                return time_packed_shape(*args, sm_rate, int8_rate)
+            keys += ["popc_bound_ms", "variant"]
         shapes = [timed(args) for args in [spec["main"], spec["ladder"],
                                            *spec.get("more", [])]]
         row.update({k: shapes[0][k] for k in keys})
         row["shape"] = {k: shapes[0][k] for k in ("n", "c", "width")}
         row["ladder_shape"] = shapes[1]
-        # One-row delta and full row block against the first serving chunk.
-        row["serve_shapes"] = [timed(spec["serve"][0]),
-                               timed(spec["serve"][4])]
+        # One-row delta, the slot's ragged tail and a full row block against
+        # the first serving chunk.
+        row["serve_shapes"] = [timed(spec["serve"][i]) for i in (0, 2, 4)]
         if spec["name"] == "support_count":
             row["more_shapes"] = shapes[2:]
             row["sweep"] = bitmap_sweep(enc, spec["main"][1], spec["main"][2],
@@ -696,7 +707,7 @@ def main_path(workloads):
                     reset_launches()
                     res, wall = mine(db, support, store, **options)
                     got = dict(launches)
-                if pad_copies["support_count"]:
+                if any(pad_copies.values()):
                     raise AssertionError(f"{store}: {pad_copies} pad copies "
                                          "on the main path")
                 if path == "ladder":
@@ -807,7 +818,7 @@ def out_of_core(workloads, bases):
                     reset_launches()
                     res, wall = mine(reader, support, store)
                     got = dict(launches)
-                if pad_copies["support_count"]:
+                if any(pad_copies.values()):
                     raise AssertionError(f"{store}: {pad_copies} pad copies "
                                          "out of core")
                 expected = (sum(math.ceil(c / CAND_BLOCK) for c in waves.sizes)
@@ -1114,7 +1125,7 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches,
         raise AssertionError(f"{name} {store}: launches {got} != {want} or "
                              f"{len(log.deltas)} logged delta jobs != "
                              f"{stats['delta_jobs']}")
-    if pad_copies["support_count"]:
+    if any(pad_copies.values()):
         raise AssertionError(f"{name} {store}: {pad_copies} pad copies")
     if kernel and not got[kernel]:
         raise AssertionError(f"{kernel} never launched on {name}")
@@ -2215,7 +2226,7 @@ def token_miner_phase(support=0.01, steps=4, batch=256, seq_len=4096):
             res = miner.mine_steps(pipe, range(steps))
             wall = time.perf_counter() - t0
             got = dict(launches)
-        if pad_copies["support_count"]:
+        if any(pad_copies.values()):
             raise AssertionError(f"token miner {store}: pad copies")
         sizes = [p.n_candidates for p in res.levels[1:]]
         if waves.sizes != sizes:
@@ -3488,7 +3499,9 @@ def count_share(sm_rate, int8_rate, seed=13):
         hashed, support_count(bitmap[:s], khot, kvec),
         packed_support_count(packed[:s], cpacked, kvec)))
     w = f // 32
-    k2_ops, k1_ops = 2 * n * f * c / int8_rate, n * c * w / sm_rate
+    # Both kernels issue 2 N F C int8 tensor-core operations; kernel 1's
+    # POPC bound (N C W popcounts) is its earlier SIMT design's.
+    k2_ops = 2 * n * f * c / int8_rate
     k2_bytes = (n * f + c * f + 2 * c * 4) / HBM_BYTES_PER_S
     k1_bytes = (n * w * 4 + c * w * 4 + 2 * c * 4) / HBM_BYTES_PER_S
     rec = {"n": n, "f": f, "c": c, "k": k, "density": P13_DENSITY / 256,
@@ -3496,7 +3509,9 @@ def count_share(sm_rate, int8_rate, seed=13):
            "make_s": make_s, "support_count_ms": k2_ms,
            "packed_support_count_ms": k1_ms,
            "support_count_bound_ms": max(k2_ops, k2_bytes) * 1e3,
-           "packed_support_count_bound_ms": max(k1_ops, k1_bytes) * 1e3,
+           "packed_support_count_bound_ms": max(k2_ops, k1_bytes) * 1e3,
+           "packed_support_count_popc_bound_ms":
+               max(n * c * w / sm_rate, k1_bytes) * 1e3,
            "slice_rows": s, "plain_bf16_slice_ms": plain_ms,
            "perfect_hash_slice_ms": hash_ms,
            "support_min": int(k2.min()), "support_mean": float(k2.float().mean()),
@@ -3620,7 +3635,9 @@ def dryrun_phase(root, tmp, procs, sm_rate, int8_rate, train):
           f"{share['support_count_ms']:.2f} ms (bound "
           f"{share['support_count_bound_ms']:.2f} ms, int8 operations), "
           f"packed_support_count {share['packed_support_count_ms']:.2f} ms "
-          f"(bound {share['packed_support_count_bound_ms']:.2f} ms, POPC), "
+          f"(bound {share['packed_support_count_bound_ms']:.2f} ms, int8 "
+          f"operations; POPC {share['packed_support_count_popc_bound_ms']:.2f}"
+          " ms), "
           f"equal {share['share_equal']}; supports {share['support_min']}-"
           f"{share['support_max']}, mean {share['support_mean']:.1f}; the "
           f"dry run's cell {dry['shape']} a device: t_compute "

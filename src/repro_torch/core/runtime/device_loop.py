@@ -60,6 +60,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.runtime.engine import resolve_device
 from repro_torch.core.runtime.faults import DeviceLostError, FaultPlan
 from repro_torch.core.runtime.job import JobProfile
 from repro_torch.core.stores.base import ITEM_PAD
@@ -169,10 +170,12 @@ def _filter_keep(cand: torch.Tensor, lvl: torch.Tensor) -> torch.Tensor:
     return keep
 
 
-def apriori_gen_device(level_mat: np.ndarray, device="cpu") -> np.ndarray:
+def apriori_gen_device(level_mat: np.ndarray, device="cuda") -> np.ndarray:
     """Device twin of ``itemsets.apriori_gen_matrix``: identical rows in the
     identical (lexicographic) order.  Standalone entry point; the ladder
-    runs the same ``_gen_prune`` inside its level step."""
+    runs the same ``_gen_prune`` inside its level step.  Runs on the card
+    unless ``device="cpu"``; raises without one."""
+    device = resolve_device(device)
     mat = np.asarray(level_mat, dtype=np.int32)
     if mat.size == 0:
         return np.zeros(
@@ -183,9 +186,11 @@ def apriori_gen_device(level_mat: np.ndarray, device="cpu") -> np.ndarray:
 
 
 def filter_candidates_device(cand: np.ndarray, level_mat: np.ndarray,
-                             device="cpu") -> np.ndarray:
+                             device="cuda") -> np.ndarray:
     """Device twin of ``itemsets.filter_candidates_matrix`` (order-preserving
-    SPC cut-back): keep a candidate row iff every k-subset is a level row."""
+    SPC cut-back): keep a candidate row iff every k-subset is a level row.
+    Runs on the card unless ``device="cpu"``; raises without one."""
+    device = resolve_device(device)
     cand = np.asarray(cand, dtype=np.int32)
     if cand.size == 0 or level_mat.size == 0:
         return np.zeros((0, cand.shape[1] if cand.ndim == 2 else 0), np.int32)

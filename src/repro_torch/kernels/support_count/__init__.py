@@ -4,6 +4,7 @@ PyTorch versions (``ref.py``)."""
 from repro_torch.kernels.support_count.ops import (
     launches,
     packed_support_count,
+    packed_variant,
     pad_copies,
     reset_launches,
     support_count,
@@ -23,4 +24,5 @@ __all__ = [
     "support_count_ref",
     "packed_support_count",
     "packed_support_count_ref",
+    "packed_variant",
 ]

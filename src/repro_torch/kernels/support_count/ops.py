@@ -6,9 +6,9 @@ On CPU tensors a wrapper computes with its kernel's plain version
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output, and adds one to ``launches[name]`` for every kernel launch (and
 nowhere else), so a run can show that its main path went through the
-kernels.  ``pad_copies["support_count"]`` counts the calls whose operands had
-to be copied into the layout TMA reads (``tma_operands``); the main path's
-F_pad is a multiple of 128 and never takes that route.
+kernels.  ``pad_copies[name]`` counts the calls whose operands had to be
+copied into the layout TMA reads (``tma_operands``); the main path's F_pad
+is a multiple of 128 (W a multiple of 4 words) and never takes that route.
 """
 
 from __future__ import annotations
@@ -24,8 +24,12 @@ from repro_torch.kernels.support_count.ref import (
 )
 
 launches: Dict[str, int] = {name: 0 for name in build.KERNELS}
-pad_copies: Dict[str, int] = {"support_count": 0}
+pad_copies: Dict[str, int] = {name: 0 for name in build.KERNELS}
 TMA_ALIGN = 16  # bytes: TMA's row pitch and base-address granule
+# The packed kernel keeps a block's candidates unpacked in shared memory up
+# to this many words a row (F = 640); wider rows stream a slab at a time.
+# Mirrors MAX_RESIDENT_SLABS x SLAB_WORDS in csrc/packed_support_count.cu.
+PACKED_RESIDENT_WORDS = 20
 
 
 def reset_launches() -> None:
@@ -80,34 +84,45 @@ def packed_support_count(packed: torch.Tensor, cpacked: torch.Tensor,
     if cpacked.shape[1] != w or kvec.shape[0] != c:
         raise ValueError(f"shapes packed {tuple(packed.shape)}, cpacked "
                          f"{tuple(cpacked.shape)}, kvec {tuple(kvec.shape)}")
-    out = torch.zeros((c,), dtype=torch.int32, device=packed.device)
     if n == 0 or c == 0:
-        return out
+        return torch.zeros((c,), dtype=torch.int32, device=packed.device)
+    out = torch.empty((c,), dtype=torch.int32, device=packed.device)
     with torch.cuda.device(packed.device):
+        packed, cpacked, copied = tma_operands(packed, cpacked)
+        pad_copies["packed_support_count"] += copied
         stream = torch.cuda.current_stream().cuda_stream
         _launch("packed_support_count", packed.data_ptr(), cpacked.data_ptr(),
-                kvec.data_ptr(), out.data_ptr(), n, c, w, stream)
+                kvec.data_ptr(), out.data_ptr(), n, c, packed.shape[1], stream)
     return out
 
 
-def tma_operands(bitmap: torch.Tensor, khot: torch.Tensor):
-    """(bitmap, khot, copied): the two row-major operands as the kernel's
-    TMA descriptors take them, rows of a multiple of 16 bytes at 16-byte
+def packed_variant(w: int) -> str:
+    """Which path of the packed kernel a W-word call takes: "resident"
+    (candidates unpacked once a block) or "streamed" (a slab at a time)."""
+    w4 = max(1, -(-w // 4)) * 4  # the width after ``tma_operands``
+    return "resident" if w4 <= PACKED_RESIDENT_WORDS else "streamed"
+
+
+def tma_operands(a: torch.Tensor, b: torch.Tensor):
+    """(a, b, copied): two row-major operands of one width as a kernel's TMA
+    descriptors take them, rows of a multiple of 16 bytes at 16-byte
     aligned addresses.  When they are not, both are copied into fresh
-    zero-filled (rows, F16) tensors, F16 the next multiple of 16 (at least
-    16): zero columns add nothing to any dot, so every count is unchanged."""
-    f = bitmap.shape[1]
-    if (f and f % TMA_ALIGN == 0 and bitmap.data_ptr() % TMA_ALIGN == 0
-            and khot.data_ptr() % TMA_ALIGN == 0):
-        return bitmap, khot, False
-    f16 = max(TMA_ALIGN, -(-f // TMA_ALIGN) * TMA_ALIGN)
+    zero-filled tensors as wide as the next multiple of 16 bytes (at least
+    16): zero columns or words add nothing to any dot or popcount, so every
+    count is unchanged."""
+    f = a.shape[1]
+    unit = TMA_ALIGN // a.element_size()  # elements in 16 bytes
+    if (f and f % unit == 0 and a.data_ptr() % TMA_ALIGN == 0
+            and b.data_ptr() % TMA_ALIGN == 0):
+        return a, b, False
+    wide_f = max(unit, -(-f // unit) * unit)
 
     def pad(t: torch.Tensor) -> torch.Tensor:
-        wide = t.new_zeros((t.shape[0], f16))
+        wide = t.new_zeros((t.shape[0], wide_f))
         wide[:, :f] = t
         return wide
 
-    return pad(bitmap), pad(khot), True
+    return pad(a), pad(b), True
 
 
 def support_count(bitmap: torch.Tensor, khot: torch.Tensor,

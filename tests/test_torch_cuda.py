@@ -191,6 +191,86 @@ def test_support_count_wgmma_edges(cuda, case):
         assert (got[-spec["pads"]:] == 0).all()
 
 
+# The packed kernel's edges: int8 wgmma over bits unpacked in shared
+# memory, 256-candidate tiles, 64-row tiles, candidates resident up to
+# W = 20 words and streamed beyond (two 64-row tiles a slab), N split
+# across blocks when the candidate tiles do not fill the SMs, and the pad
+# copy when W % 4 != 0.  Words are dense random bits, not k-hot rows, so a
+# wrong bit map cannot hide behind sparse candidates, and each kvec is some
+# row's true count.
+PACKED_EDGES = {
+    "w4_n1": dict(n=1, w=4, c=300),
+    "w5_n63_pad_route": dict(n=63, w=5, c=300),
+    "w20_n64_resident": dict(n=64, w=20, c=700),
+    "w21_n65_streamed_pad_route": dict(n=65, w=21, c=700),
+    "w128_ragged_streamed": dict(n=1000, w=128, c=520, pads=9),
+    "w128_n1": dict(n=1, w=128, c=300),
+    "c_below_tile": dict(n=700, w=16, c=100),
+    "split_n_resident": dict(n=4096, w=16, c=1000, pads=5),
+    "split_n_streamed": dict(n=2000, w=24, c=300),
+    "many_tiles_ragged": dict(n=777, w=8, c=9000),
+    "view_w5_odd_offset": dict(n=3000, w=5, c=400, view=(1001, 2999)),
+    "view_w16_odd_offset": dict(n=3000, w=16, c=500, view=(777, 2100)),
+}
+
+
+def _dense_packed_args(dev, n, w, c, pads=0, view=None, seed=0):
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 2 ** 32, (n, w), dtype=np.uint32)
+    cwords = rng.integers(0, 2 ** 32, (c, w), dtype=np.uint32)
+    words[::3, 0] |= np.uint32(1 << 31)   # the int32 sign bit on both sides
+    cwords[::2, -1] |= np.uint32(1 << 31)
+    lo, hi = view if view is not None else (0, n)
+    pick = words[rng.integers(lo, hi, size=c)] & cwords
+    kvec = np.unpackbits(pick.view(np.uint8), axis=1).sum(1).astype(np.int32)
+    if pads:
+        kvec[-pads:] = -1
+    t = torch.from_numpy(words.view(np.int32)).to(dev)
+    return [t[lo:hi], torch.from_numpy(cwords.view(np.int32)).to(dev),
+            torch.from_numpy(kvec).to(dev)]
+
+
+@pytest.mark.parametrize("case", list(PACKED_EDGES))
+def test_packed_kernel_edges(cuda, case):
+    spec = PACKED_EDGES[case]
+    args = _dense_packed_args(cuda, seed=len(case), **spec)
+    before = launches["packed_support_count"]
+    copies = pad_copies["packed_support_count"]
+    got = packed_support_count(*args)
+    torch.cuda.synchronize()
+    assert launches["packed_support_count"] == before + 1
+    assert pad_copies["packed_support_count"] == copies + (spec["w"] % 4 != 0)
+    want = packed_support_count_ref(*args)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    pads = spec.get("pads", 0)
+    assert int(want[:spec["c"] - pads].min()) >= 1  # kvec is a true count
+    if pads:
+        assert (got[-pads:] == 0).all()
+
+
+def test_packed_kernel_hit_counters_flush(cuda):
+    """The packed kernel counts a candidate's matches in 16-bit halves of a
+    register and flushes them every 16,384 row tiles.  Here 132 candidate
+    tiles keep N unsplit, so one block sees all 2^21 + 77 rows (32,769
+    tiles), and all-zero candidates with kvec 0 match every row: a counter
+    that was never flushed would wrap."""
+    n, w, c = 2 ** 21 + 77, 4, 132 * 256
+    rng = np.random.default_rng(21)
+    words = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (n, w),
+                                          dtype=np.int64).astype(np.int32))
+    cwords = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (c, w),
+                                           dtype=np.int64).astype(np.int32))
+    kvec = torch.full((c,), 32, dtype=torch.int32)
+    cwords[::2] = 0
+    kvec[::2] = 0
+    args = [words.to(cuda), cwords.to(cuda), kvec.to(cuda)]
+    got = packed_support_count(*args)
+    want = sum(packed_support_count_ref(args[0][i:i + 8192], *args[1:])
+               for i in range(0, n, 8192))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert (got[::2] == n).all() and int(got[1::2].sum()) > 0
+
+
 def test_kernel_on_row_block_views(cuda):
     """The engine hands the kernels row slices of the placed DB (views at
     an offset); a ragged tail block included."""
@@ -313,7 +393,7 @@ def test_out_of_core_mine_on_card_matches_resident(cuda, tmp_path, store,
         return orig(self, job)
 
     monkeypatch.setattr(TorchRunner, "_count_chunked_async", logged)
-    before, copies = launches[kernel], pad_copies["support_count"]
+    before, copies = launches[kernel], dict(pad_copies)
     got = FrequentItemsetMiner(min_support=0.01, store=store, block_n=256,
                                cand_block=512).mine(reader)
     assert got.itemsets == want.itemsets and got.max_k >= 5
@@ -322,7 +402,7 @@ def test_out_of_core_mine_on_card_matches_resident(cuda, tmp_path, store,
     expected = (sum(math.ceil(c / 512) for c in waves)
                 * sum(math.ceil(r / 256) for r in rows))
     assert launches[kernel] - before == expected > 0
-    assert pad_copies["support_count"] == copies
+    assert pad_copies == copies
 
 
 @pytest.mark.parametrize("store", ["packed_bitmap", "bitmap"])
@@ -371,7 +451,7 @@ def test_service_on_card_matches_cpu(cuda, store, kernel, device_loop):
               device_loop=device_loop, trim=True, compact_churn=0.0)
     card, cpu = MiningService(**kw), MiningService(device="cpu", **kw)
     assert card.runner.engine.device.type == "cuda"
-    copies = pad_copies["support_count"]
+    copies = dict(pad_copies)
     db = get_dataset("T10I4D100K", scale=0.02, seed=3)  # 2,000 baskets
     refreshed = 0
     for i in range(7):
@@ -411,7 +491,7 @@ def test_service_on_card_matches_cpu(cuda, store, kernel, device_loop):
     res = card.query()
     assert res.itemsets == brute_force_frequent(card.window(), res.min_count,
                                                 max_k=6)
-    assert pad_copies["support_count"] == copies
+    assert pad_copies == copies
     card.close()
     cpu.close()
 

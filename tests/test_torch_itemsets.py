@@ -72,7 +72,7 @@ def test_empty_inputs_and_level_round_trip():
     empty = np.zeros((0, 2), np.int32)
     assert T.apriori_gen_matrix(empty).shape == J.apriori_gen_matrix(empty).shape
     assert T.filter_candidates_matrix(empty, empty).shape == (0, 2)
-    assert T_dl.filter_candidates_device(empty, empty).shape == (0, 2)
+    assert T_dl.filter_candidates_device(empty, empty, device="cpu").shape == (0, 2)
     level = [(3, 1), (0, 2), (1, 3)]
     np.testing.assert_array_equal(T.level_to_matrix(level),
                                   J.level_to_matrix(level))

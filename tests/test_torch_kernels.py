@@ -29,7 +29,7 @@ from repro.kernels.support_count import (  # noqa: E402
 
 from repro_torch.kernels.support_count import (  # noqa: E402
     build, launches, packed_support_count, packed_support_count_ref,
-    support_count, support_count_ref, tma_operands,
+    packed_variant, support_count, support_count_ref, tma_operands,
 )
 
 BITMAP_SHAPES = [(8, 16, 4, 1), (100, 130, 70, 2), (256, 128, 128, 3),
@@ -161,6 +161,68 @@ def test_packed_plain_matches_pallas(n, w, c, k):
     got = packed_support_count(_t(packed), _t(cpacked), _t(kvec))
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n,w,c,k,misalign", [
+    (100, 5, 70, 2, 0), (513, 9, 300, 5, 0), (40, 1, 20, 1, 0),
+    (64, 21, 90, 3, 0), (200, 16, 90, 3, 8), (64, 20, 40, 4, 0)])
+def test_packed_tma_operands_keep_counts(n, w, c, k, misalign):
+    """The packed kernel's operands go through the same copy into TMA's
+    layout: W up to a multiple of 4 words, 16-byte-aligned rows; the zero
+    words leave every count as the Pallas kernel has it."""
+    packed, cpacked, kvec = _packed_case(n, w, c, [k], seed=n + w)
+    want = np.asarray(j_packed_pallas(packed, cpacked, kvec, block_n=128,
+                                      block_c=128, block_w=4, interpret=True))
+    words = _t(packed)
+    if misalign:  # the same rows at an address 8 bytes past a 16-byte granule
+        buf = torch.zeros(n * w + 16, dtype=torch.int32)
+        start = ((-buf.data_ptr()) % 16 + misalign) // 4
+        words = buf[start:start + n * w].view(n, w).copy_(words)
+    pw, pc, copied = tma_operands(words, _t(cpacked))
+    assert copied == bool(w % 4 or misalign)
+    w4 = pw.shape[1]
+    assert pc.shape == (c, w4) and w4 % 4 == 0 and w <= w4 < w + 4
+    assert pw.data_ptr() % 16 == 0 and pc.data_ptr() % 16 == 0
+    assert not pw[:, w:].any() and not pc[:, w:].any()
+    assert pw.dtype == pc.dtype == torch.int32
+    np.testing.assert_array_equal(
+        packed_support_count(pw, pc, _t(kvec)).numpy(), want)
+    assert packed_variant(w) == ("resident" if w4 <= 20 else "streamed")
+
+
+def _spread_bytes(words: np.ndarray) -> np.ndarray:
+    """(rows, 32 W) uint8: the packed kernel's unpacking, modelled in numpy.
+    Each nibble of a word becomes four {0,1} bytes as
+    (nib * 0x00204081) & 0x01010101, little-endian: bit b of word j is byte
+    32 j + b, the same map for rows and candidates."""
+    words = words.astype(np.uint32)
+    nibs = (words[..., None] >> (4 * np.arange(8, dtype=np.uint32))) & 15
+    four = (nibs * np.uint32(0x00204081)) & np.uint32(0x01010101)
+    return four.astype("<u4").view(np.uint8).reshape(words.shape[0], -1)
+
+
+@pytest.mark.parametrize("n,w,c,ks", [(90, 6, 50, [1, 2, 3, 4]),
+                                      (64, 5, 40, [7]), (33, 21, 20, [2, 9])])
+def test_unpacked_int8_dot_is_the_and_popcount(n, w, c, ks):
+    """What the tensor-core kernel computes: the int8 dot of the unpacked
+    bits of a row and a candidate equals their AND-popcount, dense words
+    and the sign bit included, so the compare with kvec gives the Pallas
+    kernel's counts."""
+    rng = np.random.default_rng(n * w)
+    packed = rng.integers(0, 2 ** 32, (n, w), dtype=np.uint32)
+    cpacked = rng.integers(0, 2 ** 32, (c, w), dtype=np.uint32)
+    packed[::3, 0] |= np.uint32(1 << 31)
+    cpacked[::2, -1] |= np.uint32(1 << 31)
+    rows, cands = _spread_bytes(packed), _spread_bytes(cpacked)
+    assert rows.shape == (n, 32 * w) and set(np.unique(rows)) <= {0, 1}
+    dots = rows.astype(np.int32) @ cands.astype(np.int32).T
+    kvec = dots[rng.integers(n, size=c), np.arange(c)].astype(np.int32)
+    want = np.asarray(j_packed_pallas(packed, cpacked, kvec, block_n=128,
+                                      block_c=128, block_w=4, interpret=True))
+    np.testing.assert_array_equal((dots == kvec[None, :]).sum(0), want)
+    np.testing.assert_array_equal(
+        packed_support_count(_t(packed), _t(cpacked), _t(kvec)).numpy(), want)
+    assert want.min() >= 1  # each kvec is some row's true count
 
 
 def test_packed_plain_mixed_k_pads_and_sign_bit():

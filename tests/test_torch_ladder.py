@@ -69,7 +69,7 @@ def test_join_pair_count_and_gen_match_reference(seed):
     k = int(rng.integers(1, 5))
     mat = _level(rng, k, int(rng.integers(k + 1, 24)), int(rng.integers(1, 90)))
     assert T_dl.join_pair_count(mat) == J_dl.join_pair_count(mat)
-    got = T_dl.apriori_gen_device(mat)
+    got = T_dl.apriori_gen_device(mat, device="cpu")
     want = np.asarray(J_dl.apriori_gen_device(mat))
     assert got.dtype == np.int32
     np.testing.assert_array_equal(got, want)
@@ -82,12 +82,26 @@ def test_gen_edges_and_chunked_pair_mask(monkeypatch):
     for mat in (np.zeros((0, 2), np.int32), np.array([[3, 5]], np.int32),
                 np.arange(7, dtype=np.int32)[:, None]):
         assert T_dl.join_pair_count(mat) == J_dl.join_pair_count(mat)
-        np.testing.assert_array_equal(T_dl.apriori_gen_device(mat),
+        np.testing.assert_array_equal(T_dl.apriori_gen_device(mat, device="cpu"),
                                       J.apriori_gen_matrix(mat))
     mat = _level(np.random.default_rng(11), 2, 30, 200)
     monkeypatch.setattr(T_dl, "_MAX_EQ_ELEMENTS", 3 * mat.shape[0])
-    np.testing.assert_array_equal(T_dl.apriori_gen_device(mat),
+    np.testing.assert_array_equal(T_dl.apriori_gen_device(mat, device="cpu"),
                                   J.apriori_gen_matrix(mat))
+
+
+@pytest.mark.parametrize("empty", [False, True])
+def test_device_gen_and_filter_default_to_the_card(monkeypatch, empty):
+    """Without ``device=`` both standalone entry points ask for the card,
+    and raise where there is none rather than run on the CPU, empty
+    inputs included."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mat = (np.zeros((0, 2), np.int32) if empty
+           else _level(np.random.default_rng(5), 2, 12, 20))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T_dl.apriori_gen_device(mat)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        T_dl.filter_candidates_device(J.apriori_gen_matrix(mat), mat)
 
 
 @pytest.mark.parametrize("store,use_kernel", CONFIGS)
