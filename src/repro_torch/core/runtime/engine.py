@@ -57,6 +57,7 @@ import torch
 from repro_torch.core.stores import ARRAY_STORES, EncodedDB, pad_candidates
 from repro_torch.core.stores.base import ITEM_PAD
 from repro_torch.distributed.ctx import fetch_global
+from repro_torch.trace import span
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -217,30 +218,36 @@ class MapReduceEngine:
         self.abandon()  # handles from a prior DB are void
         shards = self.n_data_shards
         n_padded = -(-enc.n_transactions // shards) * shards
-        enc = enc.pad_transactions_to(n_padded)
-        local = enc.row_block(*self._row_block(n_padded))
-        trans = self.store.transaction_inputs(local)
-        self._trans_device = {k: torch.from_numpy(np.ascontiguousarray(v))
-                              .to(self.device) for k, v in trans.items()}
+        with span("repro_torch.engine.place.pack"):
+            enc = enc.pad_transactions_to(n_padded)
+            local = enc.row_block(*self._row_block(n_padded))
+            trans = self.store.transaction_inputs(local)
+        with span("repro_torch.engine.place.copy"):
+            self._trans_device = {
+                k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                for k, v in trans.items()}
         self._enc = enc
         self._local_enc = local
 
     def _blocked_count(self, trans: dict, cands: dict) -> torch.Tensor:
         """Mapper body: a loop over Nb-row blocks bounds peak (Nb, C) memory;
-        a ragged tail block is counted on its own."""
+        a ragged tail block is counted on its own.  One span covers the
+        whole loop: a span a block would put thousands of profiler ranges
+        in a traced job."""
         n = next(iter(trans.values())).shape[0]
         block_n = max(1, min(self.block_n, n))  # n == 0 guarded by callers
         n_blocks = max(1, n // block_n)
         usable = n_blocks * block_n
         partial = None
-        for b in range(n_blocks):
-            block = {k: v[b * block_n:(b + 1) * block_n]
-                     for k, v in trans.items()}
-            part = self.store.count_block(block, cands)
-            partial = part if partial is None else partial + part
-        if usable < n:  # ragged tail block
-            partial = partial + self.store.count_block(
-                {k: v[usable:] for k, v in trans.items()}, cands)
+        with span("repro_torch.engine.launch"):
+            for b in range(n_blocks):
+                block = {k: v[b * block_n:(b + 1) * block_n]
+                         for k, v in trans.items()}
+                part = self.store.count_block(block, cands)
+                partial = part if partial is None else partial + part
+            if usable < n:  # ragged tail block
+                partial = partial + self.store.count_block(
+                    {k: v[usable:] for k, v in trans.items()}, cands)
         return partial
 
     # -- collectives -----------------------------------------------------------
@@ -304,13 +311,14 @@ class MapReduceEngine:
         sharding, pad C to the cand shard multiple and encode only this
         rank's slice (the shard-local encode)."""
         shards = self.n_cand_shards if sharded else 1
-        cand_p = pad_candidates(chunk, f_pad, shards=shards)
-        if shards > 1:
-            lo, hi = self.cand_slice(cand_p.shape[0])
-            cand_p = cand_p[lo:hi]
-        cand_dev = torch.from_numpy(
-            np.ascontiguousarray(cand_p, dtype=np.int32)).to(self.device)
-        return self.store.encode_candidates(cand_dev, f_pad=f_pad)
+        with span("repro_torch.engine.encode"):
+            cand_p = pad_candidates(chunk, f_pad, shards=shards)
+            if shards > 1:
+                lo, hi = self.cand_slice(cand_p.shape[0])
+                cand_p = cand_p[lo:hi]
+            cand_dev = torch.from_numpy(
+                np.ascontiguousarray(cand_p, dtype=np.int32)).to(self.device)
+            return self.store.encode_candidates(cand_dev, f_pad=f_pad)
 
     def _dispatch_count(self, trans: dict, cands: dict, reduce: bool = True):
         """Dispatch the count of an encoded chunk over ``trans`` and, with
@@ -339,8 +347,9 @@ class MapReduceEngine:
     def _force_oldest(self) -> None:
         """Fetch the oldest outstanding chunk result to the host (blocking)."""
         pending, slot, dev, c, _ = self._queue.popleft()
-        counts = fetch_global(dev)
-        pending._parts[slot] = counts[:c].astype(np.int64)
+        with span("repro_torch.engine.wait"):
+            counts = fetch_global(dev)
+            pending._parts[slot] = counts[:c].astype(np.int64)
 
     def drain_ready(self) -> int:
         """Fetch every *leading* queue entry whose device result is already

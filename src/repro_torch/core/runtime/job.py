@@ -15,7 +15,9 @@ Phase fields (seconds; a backend leaves phases it does not have at 0.0):
                       or max-over-mappers apriori-gen in the simulator)
 ``build_seconds``     candidate-structure build (max-over-mappers tree /
                       trie construction in the simulator)
-``encode_seconds``    host->device candidate encode + dispatch (device runners)
+``encode_seconds``    host->device candidate encode + dispatch (device
+                      runners), with the waits on earlier chunks' results
+                      that the dispatch queue's depth forces
 ``count_seconds``     mapper counting: device wait (device runners) or
                       max-over-mappers transaction scan (simulator)
 ``reduce_seconds``    reducer: partial-count merge (simulator) or

@@ -78,6 +78,7 @@ from repro_torch.core.sequential import SEQUENTIAL_STORES
 from repro_torch.core.stores import (
     EncodedDB, encode_db_from_padded, padded_from_transactions)
 from repro_torch.core.stores.base import dense_remap_padded
+from repro_torch.trace import span
 
 
 def _chunks(transactions: Sequence[Sequence[int]], n_mappers: int):
@@ -716,26 +717,29 @@ class TorchRunner(BaseRunner):
         self._raw_digest = None  # lazily computed on first place()
 
     def job1(self) -> Tuple[np.ndarray, JobProfile]:
-        t0 = time.perf_counter()
-        if self._reader is not None:
-            # Per-chunk device histograms summed on the host: a bincount is
-            # additive over disjoint blocks, so this equals the whole-DB job.
-            hist = np.zeros((self._n_raw,), np.int64)
-            n_chunks = 0
-            for chunk in self._reader.chunks():
-                hist += self.engine.count_items_device(chunk, self._n_raw)
-                n_chunks += 1
+        with span("repro_torch.runner.job1"):
+            t0 = time.perf_counter()
+            if self._reader is not None:
+                # Per-chunk device histograms summed on the host: a bincount
+                # is additive over disjoint blocks, so this equals the
+                # whole-DB job.
+                hist = np.zeros((self._n_raw,), np.int64)
+                n_chunks = 0
+                for chunk in self._reader.chunks():
+                    hist += self.engine.count_items_device(chunk, self._n_raw)
+                    n_chunks += 1
+                wall = time.perf_counter() - t0
+                prof = JobProfile(
+                    k=1, n_candidates=int(np.count_nonzero(hist)),
+                    seconds=wall, count_seconds=wall, chunks=n_chunks)
+                return hist, prof
+            hist = self.engine.count_items_device(self._padded_raw,
+                                                  self._n_raw)
             wall = time.perf_counter() - t0
+            # n_candidates = distinct items actually observed.
             prof = JobProfile(k=1, n_candidates=int(np.count_nonzero(hist)),
-                              seconds=wall, count_seconds=wall,
-                              chunks=n_chunks)
+                              seconds=wall, count_seconds=wall)
             return hist, prof
-        hist = self.engine.count_items_device(self._padded_raw, self._n_raw)
-        wall = time.perf_counter() - t0
-        # n_candidates = distinct items actually observed.
-        prof = JobProfile(k=1, n_candidates=int(np.count_nonzero(hist)),
-                          seconds=wall, count_seconds=wall)
-        return hist, prof
 
     def place(self, item_map: np.ndarray) -> None:
         """Dense re-encode over the frequent items, served through the shared
@@ -746,13 +750,15 @@ class TorchRunner(BaseRunner):
         if self._reader is not None:
             self._chunk_item_map = np.asarray(item_map, np.int64)
             return
-        if self._raw_digest is None:
-            self._raw_digest = dataset_digest(self._padded_raw)
-        item_arr = np.asarray(item_map, np.int64)
-        f_pad = ((len(item_arr) // 128) + 1) * 128  # EncodedDB's F_pad
-        key = (self._raw_digest, self.engine.store_name, f_pad,
-               dataset_digest(item_arr))
-        enc = DATASET_CACHE.get_or_build(key, lambda: self._encode(item_arr))
+        with span("repro_torch.runner.place.encode"):
+            if self._raw_digest is None:
+                self._raw_digest = dataset_digest(self._padded_raw)
+            item_arr = np.asarray(item_map, np.int64)
+            f_pad = ((len(item_arr) // 128) + 1) * 128  # EncodedDB's F_pad
+            key = (self._raw_digest, self.engine.store_name, f_pad,
+                   dataset_digest(item_arr))
+            enc = DATASET_CACHE.get_or_build(
+                key, lambda: self._encode(item_arr))
         self.engine.place(enc)
 
     def _encode(self, item_map: np.ndarray):

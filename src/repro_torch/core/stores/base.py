@@ -15,6 +15,8 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.trace import span
+
 # Sentinel larger than any item id; keeps padded rows sorted for searchsorted.
 ITEM_PAD = np.int32(2**30)
 
@@ -122,12 +124,14 @@ def padded_from_transactions(
     """One host pass over raw transaction lists -> ((N, L) int32 padded
     matrix of unique sorted ids, ITEM_PAD-padded; max item id + 1)."""
     n = len(transactions)
-    rows = [sorted(set(int(x) for x in t)) for t in transactions]
-    lmax = max(min_len, max((len(r) for r in rows), default=1))
-    padded = np.full((n, lmax), ITEM_PAD, dtype=np.int32)
-    for i, r in enumerate(rows):
-        padded[i, : len(r)] = r
-    n_raw = max((r[-1] for r in rows if r), default=-1) + 1
+    with span("repro_torch.ingest.rows"):
+        rows = [sorted(set(int(x) for x in t)) for t in transactions]
+    with span("repro_torch.ingest.fill"):
+        lmax = max(min_len, max((len(r) for r in rows), default=1))
+        padded = np.full((n, lmax), ITEM_PAD, dtype=np.int32)
+        for i, r in enumerate(rows):
+            padded[i, : len(r)] = r
+        n_raw = max((r[-1] for r in rows if r), default=-1) + 1
     return padded, n_raw
 
 
