@@ -7,24 +7,28 @@ Run from the repository root; it needs one card and imports neither JAX nor
 the JAX package.  Phases, each of which fails the run (non-zero exit, no
 result line) when it fails:
 
-1. the card's name and power limit, and the build of both hand-written
-   kernels from ``src/repro_torch/kernels/support_count/csrc``;
+1. the card's name and power limit, and the build of the three
+   hand-written kernels from ``src/repro_torch/kernels/support_count/csrc``;
 2. every kernel against its plain PyTorch version on the card, exactly
    (counts are integers), at the shapes the main path gives it on
    T10I4D100K (the host loop's 32,768-candidate C2 chunk and the level
-   ladder's whole 127,264-row C2; for the bitmap kernel also
-   BMS_WebView_2's C2: F_pad = 128; and phase 6's serving shapes: the
+   ladder's whole 127,264-row C2; for the bitmap and gather kernels also
+   BMS_WebView_2's C2: F_pad = 128, and for the gather kernel a
+   32,768-row chunk of triples; and phase 6's serving shapes: the
    first and last 32,768-candidate chunks of the tracked C2 at F_pad 640
    over a one-row delta block, a 1,077-row slot tail and a full row
    block, and for the packed kernel the whole tracked C2 as one chunk over
    a full row block, as the drift program counts it) and at ragged shapes
    (C larger than a
    tile, mixed k with pad rows, N split across blocks, a W >= 128
-   vocabulary, F % 16 != 0); kernel, plain and library times beside the
-   least time the card could take (for the packed kernel the int8
-   tensor-core bound it now works to, beside the POPC bound of its
-   earlier design, and which of its paths ran), at the main, ladder and
-   serving shapes (one row, the slot's tail, a full row block);
+   vocabulary, F % 16 != 0; for the gather kernel N 1, 31, 33 and 5,000,
+   a trimmed F_pad, k up to 9 and a row view at an odd address); kernel,
+   plain and library times beside the least time the card could take
+   (for the packed kernel the int8 tensor-core bound it now works to,
+   beside the POPC bound of its earlier design, and which of its paths
+   ran; for the gather kernel its device-memory bytes alone, a floor), at
+   the main, ladder and serving shapes (one row, the slot's tail, a full
+   row block);
 3. small mines on the card against brute-force counting: SPC through every
    store (the kernel stores with the kernel on and off) and the level
    ladder (``device_loop=True``) through every store;
@@ -35,8 +39,9 @@ result line) when it fails:
    level ladder through all five stores, DPC
    through ``packed_bitmap``, ``bitmap`` and ``perfect_hash``, and FPC
    through the same three on BMS_WebView_2 only (on T10I4D100K its first
-   job would generate a ~2.7e9-row C4).  The kernel stores run at their
-   default switch (the kernel on CUDA tensors).  Every mine's itemsets AND
+   job would generate a ~2.7e9-row C4).  The kernel stores
+   (``packed_bitmap``, ``bitmap``, ``perfect_hash``) run at their default
+   switch (the kernel on CUDA tensors).  Every mine's itemsets AND
    supports must equal the ``perfect_hash`` SPC mine's; every kernel's
    launch count must equal what its path asks for (row blocks x candidate
    chunks of every counting wave on the host loop; row blocks of every
@@ -48,12 +53,11 @@ result line) when it fails:
    ``ChunkedDatasetReader`` with SPC, every job streaming every chunk.
    T10I4D100K at ceil(N/4) transactions per chunk through
    ``packed_bitmap``, ``bitmap`` and ``perfect_hash``; BMS_WebView_2 at
-   ceil(N/4) through the two kernel
-   stores.  Each mine's itemsets AND supports must equal the phase-4
-   ``perfect_hash`` SPC mine's, every level row must have streamed every
-   chunk, no bitmap count may take the pad copy, and each kernel's launches
-   must equal (candidate chunks of every wave) x (row blocks of every
-   transaction chunk);
+   ceil(N/4) through ``packed_bitmap`` and ``bitmap``.  Each mine's
+   itemsets AND supports must equal the phase-4 ``perfect_hash`` SPC
+   mine's, every level row must have streamed every chunk, no bitmap count
+   may take the pad copy, and each kernel's launches must equal (candidate
+   chunks of every wave) x (row blocks of every transaction chunk);
 6. serving: ``MiningService`` on the card over seeded ``basket_stream``
    windows.  T10I4D100K (32 slots of 3,125, min_support 0.01, margin 0.8,
    max_k 8): 32 warm-up batches and a cold query, then 16 measured batches
@@ -241,7 +245,8 @@ BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core peak (data sheet)
 BLOCK_N, CAND_BLOCK = 2048, 32_768  # the miner's default row block / chunk
 SLOT = 3125  # phase 6's T10I4D100K slot: 32 slots hold the 100,000 baskets
 CAND_UNIT = 8  # the level ladder's candidate pad quantum
-KERNEL_OF = {"packed_bitmap": "packed_support_count", "bitmap": "support_count"}
+KERNEL_OF = {"packed_bitmap": "packed_support_count", "bitmap": "support_count",
+             "perfect_hash": "gather_and_count"}
 STORES = ["packed_bitmap", "bitmap", "perfect_hash", "sorted_prefix",
           "hash_bucket"]
 
@@ -282,10 +287,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled_ms(fn, kernel: str, reps: int = 20):
-    """(device ms per launch of the hand-written kernel ``kernel``, from a
-    ``torch.profiler`` trace; host ms per call, the enqueue time).  The
-    device time is None where the trace holds none."""
+def profiled_ms(fn, kernels, reps: int = 20):
+    """(device ms a call: the time per launch of each hand-written kernel
+    ``kernels`` names (a name, or a tuple of the names one call launches),
+    summed, from a ``torch.profiler`` trace; host ms per call, the enqueue
+    time).  The device time is None where the trace misses a kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -301,17 +307,22 @@ def profiled_ms(fn, kernel: str, reps: int = 20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_us, count = 0.0, 0
-        for ev in prof.key_averages():
-            # Demangled or not, the name holds "<kernel>_kernel" right after
-            # a non-name character ("::", a length digit), so "packed_..."
-            # never passes for the other kernel.
-            at = ev.key.find(f"{kernel}_kernel")
-            if at > 0 and not (ev.key[at - 1].isalpha() or ev.key[at - 1] == "_"):
-                total_us += getattr(ev, "device_time_total", None) \
-                    or getattr(ev, "cuda_time_total", 0.0)
-                count += ev.count
-        device_ms = total_us / count / 1e3 if count and total_us else None
+        per_launch = []
+        for kernel in ((kernels,) if isinstance(kernels, str) else kernels):
+            total_us, count = 0.0, 0
+            for ev in prof.key_averages():
+                # Demangled or not, the name holds "<kernel>_kernel" right
+                # after a non-name character ("::", a length digit), so
+                # "packed_..." never passes for the other kernel.
+                at = ev.key.find(f"{kernel}_kernel")
+                if at > 0 and not (ev.key[at - 1].isalpha()
+                                   or ev.key[at - 1] == "_"):
+                    total_us += getattr(ev, "device_time_total", None) \
+                        or getattr(ev, "cuda_time_total", 0.0)
+                    count += ev.count
+            per_launch.append(total_us / count / 1e3 if count and total_us
+                              else None)
+        device_ms = None if None in per_launch else sum(per_launch)
     except Exception as err:  # the numbers stay "not measured"
         print(f"profiler: no device time ({type(err).__name__}: {err})")
         device_ms = None
@@ -433,6 +444,41 @@ def time_packed_shape(a, b, kv, sm_rate, int8_rate):
     return row
 
 
+def time_gather_shape(bitmap, cand):
+    """Times of the gather kernel and its plain version (the store's
+    gathers) at one shape; no single PyTorch call computes the same
+    function.  Its floor is the bytes a block must take from device memory
+    in a job, the rows, ids and counts once; the candidates' column words
+    (``l2_bytes``) come from L2, whose bandwidth the data sheet does not
+    state, so they are left out of it."""
+    from repro_torch.kernels.support_count import (
+        gather_and_count, gather_and_count_ref)
+
+    n, f = bitmap.shape
+    c, k = cand.shape
+    words = -(-n // 32)
+
+    def kernel():
+        return gather_and_count(bitmap, cand)
+
+    row = {"n": n, "c": c, "width": f, "k": k,
+           "ms": cuda_ms(kernel, reps=50),
+           "plain_ms": cuda_ms(lambda: gather_and_count_ref(bitmap, cand),
+                               reps=3, warmup=1),
+           "bound_ms": (n * f + c * k * 4 + c * 4) / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "l2_bytes": (c * k + f) * words * 4,
+           "library_ms": None}
+    row["device_ms"], row["host_call_ms"] = profiled_ms(
+        kernel, ("gather_and_count_pack", "gather_and_count_popc"))
+    print(f"time gather_and_count n={n} c={c} width={f} k={k}: kernel "
+          f"{row['ms']:.4f} ms, profiler device {row['device_ms']} ms a call "
+          f"(pack + count), device-memory floor {row['bound_ms']:.5f} ms "
+          f"(the {row['l2_bytes'] / 1e6:.1f} MB of column words from L2 not "
+          f"priced), plain {row['plain_ms']:.4f} ms, library none; host "
+          f"{row['host_call_ms']:.4f} ms per call")
+    return row
+
+
 def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
     """Every kernel vs its plain version on the card; returns JSON rows."""
     import numpy as np
@@ -443,8 +489,8 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
     from repro_torch.core.stores.packed_bitmap import (
         PackedBitmapStore, pack_candidates_device)
     from repro_torch.kernels.support_count import (
-        packed_support_count, packed_support_count_ref, support_count,
-        support_count_ref)
+        gather_and_count, gather_and_count_ref, packed_support_count,
+        packed_support_count_ref, support_count, support_count_ref)
 
     dev = torch.device("cuda")
 
@@ -471,12 +517,12 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
     packed = torch.from_numpy(enc.packed[:BLOCK_N]).to(dev)
     bitmap = torch.from_numpy(enc.bitmap[:BLOCK_N]).to(dev)
     bitmap_bms = torch.from_numpy(enc_bms.bitmap[:BLOCK_N]).to(dev)
+    cand_bms = first_c2_chunk(enc_bms)
     pc = PackedBitmapStore.encode_candidates(cand, f_pad=enc.f_pad)
     pc_l = PackedBitmapStore.encode_candidates(cand_l, f_pad=enc.f_pad)
     bc = BitmapMXUStore.encode_candidates(cand, f_pad=enc.f_pad)
     bc_l = BitmapMXUStore.encode_candidates(cand_l, f_pad=enc.f_pad)
-    bc_bms = BitmapMXUStore.encode_candidates(first_c2_chunk(enc_bms),
-                                              f_pad=enc_bms.f_pad)
+    bc_bms = BitmapMXUStore.encode_candidates(cand_bms, f_pad=enc_bms.f_pad)
     if "packed" not in pc or bc["khot"].dtype != torch.int8:
         raise AssertionError("default switch: CUDA tensors not encoded for "
                              "the kernels")
@@ -512,6 +558,20 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
         kv = torch.tensor([len(r) for r in rows], dtype=torch.int32, device=dev)
         kv[c - pads:] = -1
         return torch.from_numpy(pack_bitmap(bm)).to(dev), cp, kv
+
+    def gather_ids(f, c, k, pads):
+        """(c, k) sorted ids of distinct items in [0, f - 1), the last
+        ``pads`` rows all the always-zero column f - 1."""
+        ids = np.sort(rng.random((c, f - 1)).argsort(axis=1)[:, :k], axis=1)
+        ids[c - pads:] = f - 1
+        return torch.from_numpy(ids.astype(np.int32)).to(dev)
+
+    def gather_case(n, f, c, k, pads, skip=0):
+        """A (n, f) {0,1} block, its last column zero, as a row view
+        ``skip`` rows into a taller tensor, and its candidates."""
+        bm = (rng.random((n + skip, f)) < 0.35).astype(np.uint8)
+        bm[:, f - 1] = 0
+        return torch.from_numpy(bm).to(dev)[skip:], gather_ids(f, c, k, pads)
 
     def bitmap_case(n, f, c, ks, pads):
         bm = (rng.random((n, f)) < 0.3).astype(np.uint8)
@@ -556,6 +616,23 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
                     bitmap_case(2048, 512, 1000, [2], 0),    # N split
                     bitmap_case(1, 64, 300, [1], 0),
                     bitmap_case(1000, 96, 600, [2, 3], 7)]},
+        {"name": "gather_and_count", "kernel": gather_and_count,
+         "plain": gather_and_count_ref,
+         "source": "src/repro_torch/kernels/support_count/csrc/gather_and_count.cu",
+         "replaces": "src/repro/core/stores/perfect_hash.py:44",
+         "main": (bitmap, cand),
+         "ladder": (bitmap, cand_l),
+         # BMS_WebView_2's C2, and a C3 chunk of T10I4D100K's items.
+         "more": [(bitmap_bms, cand_bms),
+                  (bitmap, gather_ids(enc.n_items + 1, CAND_BLOCK, 3, 0))],
+         "serve": [(bitmap_s[n], x) for n in serve_rows for x in chunks_s],
+         "ragged": [gather_case(1, 640, 1000, 2, 10),
+                    gather_case(31, 128, 129, 3, 5),
+                    gather_case(33, 1024, 70, 4, 7),
+                    gather_case(513, 949, 300, 5, 0),      # trimmed F_pad
+                    gather_case(2049, 1000, 2000, 6, 11),
+                    gather_case(5000, 3456, 129, 9, 3),    # k looped
+                    gather_case(1077, 949, 4096, 2, 64, skip=3)]},
     ]
     rows = []
     for spec in specs:
@@ -581,6 +658,10 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
             def timed(args):
                 return time_bitmap_shape(*args, int8_rate)
             keys.append("library_int8_ms")
+        elif spec["name"] == "gather_and_count":
+            def timed(args):
+                return time_gather_shape(*args)
+            keys += ["k", "l2_bytes"]
         else:
             def timed(args):
                 return time_packed_shape(*args, sm_rate, int8_rate)
@@ -593,8 +674,9 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
         # One-row delta, the slot's ragged tail and a full row block against
         # the first serving chunk.
         row["serve_shapes"] = [timed(spec["serve"][i]) for i in (0, 2, 4)]
-        if spec["name"] == "support_count":
+        if spec.get("more"):
             row["more_shapes"] = shapes[2:]
+        if spec["name"] == "support_count":
             row["sweep"] = bitmap_sweep(enc, spec["main"][1], spec["main"][2],
                                         int8_rate)
         rows.append(row)
@@ -777,12 +859,11 @@ def out_of_core(workloads, bases):
     from repro_torch.kernels.support_count import (
         launches, pad_copies, reset_launches)
 
-    # T10I4D100K at N/4 through the kernel stores and perfect_hash (N/16
+    # T10I4D100K at N/4 through the three kernel stores (N/16
     # was cut for phase 11's time, N/64 for phase 12's; the card tests
     # stream 100-, 333- and 5,000-row chunks).
-    plans = {"T10I4D100K": [(4, store) for store in KERNEL_OF]
-                           + [(4, "perfect_hash")],
-             "BMS_WebView_2": [(4, store) for store in KERNEL_OF]}
+    plans = {"T10I4D100K": [(4, store) for store in KERNEL_OF],
+             "BMS_WebView_2": [(4, "packed_bitmap"), (4, "bitmap")]}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_ooc_")
     mines, host = [], {}
     by_path = {k: 0 for k in launches}
@@ -1015,12 +1096,12 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches,
     first ``warm`` batches fill the window.
     ``refs`` maps a step to ``(window digest, recount answer)``; a step
     missing there is recounted by the ``perfect_hash`` ladder miner
-    (``device_loop=True``) over ``svc.window()``.  Every exact answer must
+    (``device_loop=True``) on its plain path over ``svc.window()``, so the
+    recount launches no kernel.  Every exact answer must
     equal the recount, every stale one be sound under its certificate, and
     the kernel's launches equal what the log saw dispatched.  With ``mesh``
     the service counts through ``ShardedRunner`` on it."""
     import numpy as np
-    from repro_torch.core.miner import FrequentItemsetMiner
     from repro_torch.core.stores import ITEM_PAD
     from repro_torch.kernels.support_count import (
         launches, pad_copies, reset_launches)
@@ -1079,10 +1160,8 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches,
             if i not in refs:
                 log.paused = True
                 t1 = time.perf_counter()
-                ref = FrequentItemsetMiner(
-                    min_support=cfg["min_support"], store="perfect_hash",
-                    device_loop=True, max_k=cfg["max_k"],
-                    device="cuda").mine(window).itemsets
+                ref = mine(window, cfg["min_support"], "perfect_hash", False,
+                           device_loop=True, max_k=cfg["max_k"])[0].itemsets
                 recount_s.append(time.perf_counter() - t1)
                 log.paused = False
                 refs[i] = (digest, ref)

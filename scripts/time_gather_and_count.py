@@ -1,0 +1,174 @@
+"""Times of the gather-AND-popcount kernel (``gather_and_count``, the
+``perfect_hash`` store's count on the card) at the main path's block shape,
+beside its byte bound and the plain gathers it replaced, in one process.
+
+    python scripts/time_gather_and_count.py [--out F]
+
+For k = 2 and 3: a 2,048-row block of 1,024 {0,1} byte columns (the host
+loop's ``block_n`` and T10I4's F_pad) against 32,768 random candidates
+(its ``cand_block``).  Neither path's time depends on the bits.  Prints one
+JSON line: the card's name and power limit (``nvidia-smi``) and, for each
+k, whether the kernel equals the plain version, the kernel's time a call
+(CUDA events over back-to-back wrapper calls) and a launch of each of its
+two kernels (``torch.profiler``), the host's time to enqueue a call, the
+plain version's time a call, and the bytes: the rows, ids and counts a
+job's block takes from device memory, priced at the data sheet's
+bandwidth (``floor_ms``, a floor and not a bound: the column words come
+from L2, whose bandwidth the data sheet does not state), and the column
+words, beside what they would take at the rate ``copy_`` moves a 16 MB
+tensor that stays in L2 (``l2_at_copy_rate_ms``, a rate PyTorch reaches,
+not the card's peak).  Last, the host's cost of the steps a wrapper takes
+to launch on a tensor's device (``host_step_us``): ``torch.cuda.device``
+entered and left on a ``torch.device`` and on its index, and the stream's
+handle through ``current_stream()`` and raw.  Needs a CUDA card; it
+imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+N, F, C = 2048, 1024, 32_768
+KERNELS = ("gather_and_count_pack", "gather_and_count_popc")
+
+
+def smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def events_ms(fn, reps):
+    import torch
+
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Device ms a launch of each of ``KERNELS`` from a torch.profiler
+    trace (None where the trace holds none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in KERNELS:
+        total, count = 0.0, 0
+        for ev in prof.key_averages():
+            if name in ev.key:
+                total += getattr(ev, "device_time_total", None) or \
+                    getattr(ev, "cuda_time_total", 0.0)
+                count += ev.count
+        out[name] = total / count / 1e3 if count and total else None
+    return out
+
+
+def l2_bytes_per_s() -> float:
+    """Bytes a second read and written by ``copy_`` between two 16 MB int32
+    tensors, both staying in the 50 MB L2 between calls."""
+    import torch
+
+    x = torch.ones((4 * 2 ** 20,), dtype=torch.int32, device="cuda")
+    y = torch.empty_like(x)
+    ms = events_ms(lambda: y.copy_(x), 200)
+    return 2 * x.numel() * 4 / (ms / 1e3)
+
+
+def host_us(fn, reps=20_000):
+    """Host microseconds a call of ``fn``, by ``time.perf_counter``."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+def host_steps(t) -> dict:
+    """Host microseconds of each way to make ``t``'s device current and to
+    read its current stream's handle."""
+    import torch
+
+    def enter(arg):
+        def step():
+            with torch.cuda.device(arg):
+                pass
+        return step
+
+    dev = t.device
+    return {
+        "device_context_on_torch_device": host_us(enter(dev)),
+        "device_context_on_index": host_us(enter(dev.index)),
+        "current_stream_cuda_stream": host_us(
+            lambda: torch.cuda.current_stream(dev).cuda_stream),
+        "raw_stream": host_us(
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index))}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="append the JSON line to this file")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src"))
+    import torch
+    from repro_torch.kernels.support_count import (
+        build, gather_and_count, gather_and_count_ref)
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    build.build_all()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    l2_rate = l2_bytes_per_s()
+    rec = {"card": smi(), "n": N, "f_pad": F, "c": C,
+           "l2_copy_tbs": l2_rate / 1e12, "k": {}}
+    bitmap = (torch.rand((N, F), generator=gen, device="cuda") < 0.5).to(
+        torch.uint8)
+    for k in (2, 3):
+        cand = torch.randint(0, F - 1, (C, k), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        kernel = lambda: gather_and_count(bitmap, cand)  # noqa: E731
+        plain = lambda: gather_and_count_ref(bitmap, cand)  # noqa: E731
+        words = -(-N // 32)
+        hbm = N * F + C * k * 4 + C * 4  # rows, ids, counts
+        l2 = C * k * words * 4 + F * words * 4  # column words read, scratch
+        dev = device_ms(kernel, 50)
+        torch.cuda.synchronize()
+        enqueue_us = host_us(kernel, 2000)
+        torch.cuda.synchronize()
+        rec["k"][k] = {
+            "equal": bool(torch.equal(kernel(), plain())),
+            "kernel_ms": events_ms(kernel, 200),
+            "device_ms": dev,
+            "host_call_us": enqueue_us,
+            "plain_ms": events_ms(plain, 20),
+            "hbm_bytes": hbm, "l2_bytes": l2,
+            "floor_ms": hbm / HBM_BYTES_PER_S * 1e3,
+            "l2_at_copy_rate_ms": l2 / l2_rate * 1e3}
+    rec["host_step_us"] = host_steps(bitmap)
+    line = json.dumps(rec)
+    print(line, flush=True)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    return 0 if all(v["equal"] for v in rec["k"].values()) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,14 +1,20 @@
 """Array-layout candidate stores (PyTorch port).
 
-=================  =====================  =========================================
+=================  =====================  ==============================================
 paper structure    store                  per-level matching primitive
-=================  =====================  =========================================
-hash-table trie    ``perfect_hash``       one gather into the transaction bitmap
+=================  =====================  ==============================================
+hash-table trie    ``perfect_hash``       one gather into the transaction bitmap; on the
+                                          card a kernel ANDs bit-packed columns
 trie               ``sorted_prefix``      binary search in the sorted transaction
 hash tree          ``hash_bucket``        bucket probe + linear scan over the bucket
 (beyond paper)     ``bitmap``             dense (T·Cᵀ == k) product, int8 tensor cores
 (beyond paper)     ``packed_bitmap``      popcount(t & c) == k over 32-items/word
-=================  =====================  =========================================
+=================  =====================  ==============================================
+
+``perfect_hash``, ``bitmap`` and ``packed_bitmap`` count through hand-written
+CUDA kernels on the card (``repro_torch.kernels.support_count``:
+``gather_and_count``, ``support_count``, ``packed_support_count``) and
+through plain PyTorch on the CPU; ``use_kernel`` forces either path.
 
 Every store implements ``count_block(trans_block, cands) -> int32[C]`` over
 a block of transaction tensors, and all produce identical counts.  Candidate

@@ -2,20 +2,29 @@
 
 The dense item remap *is* the perfect hash: descending one trie level for
 candidate item ``i`` is a single gather ``bitmap[:, i]``.  A candidate
-matches a transaction iff all k gathers hit.  The level loop is unrolled
-(k is fixed per wave), so peak memory is one (Nb, C) mask, never (Nb, C, k).
-It needs no hand-written kernel, and on the card it is the independent
-cross-check of the two kernel stores.
+matches a transaction iff all k gathers hit.
+
+On CUDA tensors ``count_block`` goes through the hand-written CUDA kernel
+(``repro_torch.kernels.support_count.gather_and_count``), which packs the
+block's columns into bits once and ANDs and popcounts each candidate's k
+columns, so no (Nb, C) mask reaches device memory.  On CPU tensors the
+plain path gathers: the level loop is unrolled (k is fixed per wave), so
+peak memory is one (Nb, C) mask, never (Nb, C, k).  ``use_kernel``
+(``KernelSwitchMixin``) can force either path; on the card the plain path
+(``use_kernel=False``) is the kernel's cross-check.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.stores.base import DeltaCountMixin, EncodedDB
+from repro_torch.core.stores.base import (
+    DeltaCountMixin, EncodedDB, KernelSwitchMixin,
+)
+from repro_torch.kernels.support_count.ref import gather_and_count_ref
 
 
-class PerfectHashStore(DeltaCountMixin):
+class PerfectHashStore(KernelSwitchMixin, DeltaCountMixin):
     name = "perfect_hash"
 
     @staticmethod
@@ -40,11 +49,11 @@ class PerfectHashStore(DeltaCountMixin):
         ``encode_candidates`` returns."""
         return {"cand": 0}
 
-    @staticmethod
-    def count_block(trans: dict, cands: dict) -> torch.Tensor:
+    @classmethod
+    def count_block(cls, trans: dict, cands: dict) -> torch.Tensor:
         """trans["bitmap"]: (Nb, F_pad) uint8; cands["cand"]: (C, k) -> int32[C]."""
-        bitmap, cand = trans["bitmap"], cands["cand"]
-        matched = bitmap.index_select(1, cand[:, 0])  # level-1 gather: (Nb, C)
-        for level in range(1, cand.shape[1]):
-            matched &= bitmap.index_select(1, cand[:, level])
-        return matched.sum(dim=0, dtype=torch.int32)
+        if cls.kernel_on(trans["bitmap"].device):
+            from repro_torch.kernels.support_count import gather_and_count
+
+            return gather_and_count(trans["bitmap"], cands["cand"])
+        return gather_and_count_ref(trans["bitmap"], cands["cand"])

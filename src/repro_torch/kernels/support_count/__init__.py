@@ -2,6 +2,7 @@
 PyTorch versions (``ref.py``)."""
 
 from repro_torch.kernels.support_count.ops import (
+    gather_and_count,
     launches,
     packed_support_count,
     packed_variant,
@@ -11,6 +12,7 @@ from repro_torch.kernels.support_count.ops import (
     tma_operands,
 )
 from repro_torch.kernels.support_count.ref import (
+    gather_and_count_ref,
     packed_support_count_ref,
     support_count_ref,
 )
@@ -25,4 +27,6 @@ __all__ = [
     "packed_support_count",
     "packed_support_count_ref",
     "packed_variant",
+    "gather_and_count",
+    "gather_and_count_ref",
 ]

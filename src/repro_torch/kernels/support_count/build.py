@@ -31,6 +31,8 @@ _I = ctypes.c_int
 # C entry point of each kernel: (name, argtypes).  Every entry returns the
 # launch's cudaError_t as an int (0 = cudaSuccess).
 KERNELS = {
+    "gather_and_count": ("gather_and_count_launch",
+                         [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "packed_support_count": ("packed_support_count_launch",
                              [_P, _P, _P, _P, _I, _I, _I, _P]),
     "support_count": ("support_count_launch",

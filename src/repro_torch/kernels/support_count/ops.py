@@ -4,7 +4,8 @@ On CPU tensors a wrapper computes with its kernel's plain version
 (``ref.py``); on CUDA tensors it launches the hand-written kernel
 (``csrc/``) on PyTorch's current stream, or raises — there is no fallback.
 The wrapper checks device, dtype, shape and contiguity, allocates the
-output, and adds one to ``launches[name]`` for every kernel launch (and
+output, makes the tensors' device current (``torch.cuda.device`` on its
+index) and launches on that device's current stream (``_stream``), and adds one to ``launches[name]`` for every kernel launch (and
 nowhere else), so a run can show that its main path went through the
 kernels.  ``pad_copies[name]`` counts the calls whose operands had to be
 copied into the layout TMA reads (``tma_operands``); the main path's F_pad
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.kernels.support_count import build
 from repro_torch.kernels.support_count.ref import (
+    gather_and_count_ref,
     packed_support_count_ref,
     support_count_ref,
 )
@@ -62,6 +64,14 @@ def _check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+def _stream(device: torch.device) -> int:
+    """The raw handle of ``device``'s current stream.  Unlike
+    ``torch.cuda.current_stream().cuda_stream`` it builds no Stream object:
+    the main path launches once a row block, where a host step costs about
+    as much as the kernel."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
 def _launch(name: str, *args) -> None:
     err = build.kernel(name)(*args)
     if err:
@@ -87,12 +97,12 @@ def packed_support_count(packed: torch.Tensor, cpacked: torch.Tensor,
     if n == 0 or c == 0:
         return torch.zeros((c,), dtype=torch.int32, device=packed.device)
     out = torch.empty((c,), dtype=torch.int32, device=packed.device)
-    with torch.cuda.device(packed.device):
+    with torch.cuda.device(packed.device.index):
         packed, cpacked, copied = tma_operands(packed, cpacked)
         pad_copies["packed_support_count"] += copied
-        stream = torch.cuda.current_stream().cuda_stream
         _launch("packed_support_count", packed.data_ptr(), cpacked.data_ptr(),
-                kvec.data_ptr(), out.data_ptr(), n, c, packed.shape[1], stream)
+                kvec.data_ptr(), out.data_ptr(), n, c, packed.shape[1],
+                _stream(packed.device))
     return out
 
 
@@ -146,10 +156,40 @@ def support_count(bitmap: torch.Tensor, khot: torch.Tensor,
     if n == 0 or c == 0:
         return torch.zeros((c,), dtype=torch.int32, device=bitmap.device)
     out = torch.empty((c,), dtype=torch.int32, device=bitmap.device)
-    with torch.cuda.device(bitmap.device):
+    with torch.cuda.device(bitmap.device.index):
         bitmap, khot, copied = tma_operands(bitmap, khot)
         pad_copies["support_count"] += copied
-        stream = torch.cuda.current_stream().cuda_stream
         _launch("support_count", bitmap.data_ptr(), khot.data_ptr(),
-                kvec.data_ptr(), out.data_ptr(), n, c, bitmap.shape[1], stream)
+                kvec.data_ptr(), out.data_ptr(), n, c, bitmap.shape[1],
+                _stream(bitmap.device))
     return out
+
+
+def gather_and_count(bitmap: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """int32[C]: for every candidate row of ``cand`` (C, k) int32 item ids,
+    the number of ``bitmap`` (N, F) {0,1} rows in which all k columns are
+    set.  Any row view is read as is (an offset, F not a multiple of 16).
+
+    The kernel packs the rows' columns into an (F, ceil(N/32)) word
+    scratch, then ANDs and popcounts each candidate's columns.  The counts
+    and the scratch share one allocation, the counts first (the main path
+    calls this once a 2,048-row block, where an allocation costs as much as
+    a kernel), so the returned counts are a view that keeps the scratch
+    alive with them."""
+    if _on_cpu(bitmap, cand):
+        return gather_and_count_ref(bitmap, cand)
+    _check("bitmap", bitmap, (torch.int8, torch.uint8), 2)
+    _check("cand", cand, (torch.int32,), 2)
+    n, f = bitmap.shape
+    c, k = cand.shape
+    if k == 0:
+        raise ValueError("cand: a candidate needs at least one item")
+    if n == 0 or c == 0:
+        return torch.zeros((c,), dtype=torch.int32, device=bitmap.device)
+    head = -(-c // 32) * 32  # the scratch starts on a 128-byte line
+    buf = bitmap.new_empty((head + f * -(-n // 32),), dtype=torch.int32)
+    with torch.cuda.device(bitmap.device.index):
+        _launch("gather_and_count", bitmap.data_ptr(), cand.data_ptr(),
+                buf.data_ptr() + 4 * head, buf.data_ptr(), n, f, c, k,
+                _stream(bitmap.device))
+    return buf[:c]

@@ -1,8 +1,8 @@
-"""Plain PyTorch versions of the two support-count kernels.
+"""Plain PyTorch versions of the three support-count kernels.
 
 They define what the CUDA kernels compute: the CPU path of every wrapper,
 the CPU tests and the on-card comparison in ``chip_smoke.py`` all go through
-them.  Neither is used on the card's main path.
+them.  None is used on the card's main path.
 """
 
 from __future__ import annotations
@@ -52,4 +52,18 @@ def packed_support_count_ref(
     for w in range(t.shape[1]):
         acc += _popcount32(t[:, w, None] & c[None, :, w])
     matched = acc == kvec.to(torch.int64)[None, :]
+    return matched.sum(dim=0, dtype=torch.int32)
+
+
+def gather_and_count_ref(
+    bitmap: torch.Tensor,  # (Nb, F) {0,1} uint8 rows
+    cand: torch.Tensor,    # (C, k) item ids in [0, F)
+) -> torch.Tensor:
+    """int32[C]: for each candidate, #rows whose k item columns are all set.
+
+    The hash-table trie as gathers: one (Nb, C) column gather a level,
+    ANDed, then the per-candidate sum over the rows."""
+    matched = bitmap.index_select(1, cand[:, 0])  # level-1 gather: (Nb, C)
+    for level in range(1, cand.shape[1]):
+        matched &= bitmap.index_select(1, cand[:, level])
     return matched.sum(dim=0, dtype=torch.int32)

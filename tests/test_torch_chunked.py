@@ -39,7 +39,7 @@ from repro_torch.data import transactions as T_tx  # noqa: E402
 
 MIN_SUPPORT = 0.03
 MAX_K = 4
-KERNEL_STORES = ["packed_bitmap", "bitmap"]
+KERNEL_STORES = ["perfect_hash", "packed_bitmap", "bitmap"]
 # Every store at its default switch, and the kernel stores forced through
 # their kernels' wrappers (on CPU tensors: the kernels' plain versions).
 MINE_CONFIGS = [(s, None) for s in ARRAY_STORES] + \

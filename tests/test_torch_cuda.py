@@ -9,14 +9,18 @@ neither JAX nor ``repro``, so it runs where only PyTorch is installed:
 Each kernel is held exactly against its plain PyTorch version on the same
 device (counts are integers), on ragged shapes, C larger than a tile, mixed
 k with kvec = -1 pad rows, and wide vocabularies; the bitmap kernel also on
-the edges of its TMA/wgmma design (``WGMMA_EDGES``).  Small mines through
-each store on the card (host loop and level ladder) are held against
-brute-force counting, the trie and hash-tree stores against
-``perfect_hash``, and a mine with the default kernel switch must move the
-kernel's launch counter.  Out of core, a ``.dat`` mined through
-``ChunkedDatasetReader`` with the kernels on must equal the resident
-``perfect_hash`` mine, and the block count of a chunk shorter than
-``block_n`` and of a ragged final chunk must equal the plain path's.  A
+the edges of its TMA/wgmma design (``WGMMA_EDGES``), and the
+gather-AND-popcount kernel of ``perfect_hash`` on row counts around its
+32-row words, trimmed widths, k up to 9 and pad rows (``GATHER_CASES``).
+Small mines through each store on the card (host loop and level ladder, the
+kernel stores with the kernel on and off) are held against brute-force
+counting, the trie and hash-tree stores against ``perfect_hash``, and a
+mine with the default kernel switch must move its kernel's launch counter
+by row blocks x candidate chunks and no other.  Out of core, a ``.dat``
+mined through ``ChunkedDatasetReader`` with the kernels on must equal the
+resident ``perfect_hash`` mine on its plain path, and the block count of a
+chunk shorter than ``block_n`` and of a ragged final chunk must equal the
+plain path's.  A
 device loss on the card at k = 3 abandons the engine's queue, and a fresh
 runner resumes from the level checkpoint with the clean answer; a parity
 cell holds the Hadoop model (``sim/trie``) to ``packed_bitmap`` on the card.
@@ -45,8 +49,8 @@ from repro_torch.core.stores import (  # noqa: E402
 from repro_torch.core.stores.packed_bitmap import pack_candidates_device  # noqa: E402
 from repro_torch.data import ChunkedDatasetReader, get_dataset, write_dat  # noqa: E402
 from repro_torch.kernels.support_count import (  # noqa: E402
-    launches, packed_support_count, packed_support_count_ref, pad_copies,
-    support_count, support_count_ref,
+    gather_and_count, gather_and_count_ref, launches, packed_support_count,
+    packed_support_count_ref, pad_copies, support_count, support_count_ref,
 )
 from repro_torch.launch.multihost import launch_cluster  # noqa: E402
 
@@ -285,6 +289,58 @@ def test_kernel_on_row_block_views(cuda):
             support_count_ref(bitmap[lo:hi], khot, kv2), rtol=0, atol=0)
 
 
+# The gather-AND-popcount kernel: (Nb, F_pad, C, k, pad rows, row view).
+# Nb around a 32-row word and the count groups' widths; F_pad 128, 1,024,
+# 3,456 and trimmed widths that are no multiple of 128 (949, odd, so rows
+# start at every byte offset); k 1-6 unrolled and 9 looped; C 1, 129 and
+# 70,000; a row block viewed at an offset, as the engine hands it over.
+GATHER_CASES = {
+    "n1_k1": (1, 128, 129, 1, 0, None),
+    "n31_pads": (31, 1024, 129, 2, 5, None),
+    "n32_c1": (32, 128, 1, 3, 0, None),
+    "n33_wide": (33, 3456, 129, 4, 9, None),
+    "n2047_c70000": (2047, 1024, 70_000, 2, 17, None),
+    "n2048_c70000_k3": (2048, 1024, 70_000, 3, 0, None),
+    "n5000_trimmed": (5000, 949, 129, 5, 3, None),
+    "n2048_trimmed_k6": (2048, 949, 4096, 6, 0, None),
+    "k9_looped": (300, 256, 500, 9, 5, None),
+    "view_at_offset": (3048, 1024, 4096, 2, 0, (1000, 3048)),
+    "wide_c1": (700, 3456, 1, 1, 0, None),
+}
+
+
+def _gather_args(dev, n, f, c, k, pads, view, seed):
+    """{0,1} rows (half set) with the always-zero pad column f - 1, random
+    ids below it (row 0 holds candidate 0's items), pad rows last."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bitmap = (torch.rand((n, f), generator=gen, device=dev) < 0.5).to(
+        torch.uint8)
+    bitmap[:, f - 1] = 0
+    cand = torch.randint(0, f - 1, (c, k), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lo = view[0] if view else 0
+    bitmap[lo, cand[0].long()] = 1
+    if pads:
+        cand[-pads:] = f - 1
+    return (bitmap[view[0]:view[1]] if view else bitmap), cand
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_gather_and_count_kernel_matches_plain(cuda, case):
+    n, f, c, k, pads, view = GATHER_CASES[case]
+    bitmap, cand = _gather_args(cuda, n, f, c, k, pads, view, seed=len(case))
+    before = dict(launches)
+    got = gather_and_count(bitmap, cand)
+    torch.cuda.synchronize()
+    assert {name: launches[name] - before[name] for name in launches} == {
+        name: int(name == "gather_and_count") for name in launches}
+    want = gather_and_count_ref(bitmap, cand)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert int(want[0]) >= 1  # the case exercises matches, not only zeros
+    if pads:
+        assert (got[-pads:] == 0).all()
+
+
 def test_wrappers_reject_bad_inputs(cuda):
     words = torch.zeros((8, 4), dtype=torch.int32, device=cuda)
     kv = torch.zeros((8,), dtype=torch.int32, device=cuda)
@@ -297,15 +353,21 @@ def test_wrappers_reject_bad_inputs(cuda):
         support_count(words.float(), words.to(torch.int8), kv)
     with pytest.raises(ValueError, match="different devices"):
         packed_support_count(words, words.cpu(), kv)
+    rows = torch.zeros((8, 64), dtype=torch.uint8, device=cuda)
+    with pytest.raises(TypeError):
+        gather_and_count(rows, words.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_and_count(rows, words.T)
+    with pytest.raises(ValueError, match="at least one item"):
+        gather_and_count(rows, words[:, :0])
 
 
 @pytest.mark.parametrize("store,use_kernel", [
-    ("packed_bitmap", True), ("bitmap", True), ("perfect_hash", False),
-    ("packed_bitmap", False), ("bitmap", False)])
+    ("packed_bitmap", True), ("bitmap", True), ("perfect_hash", True),
+    ("perfect_hash", False), ("packed_bitmap", False), ("bitmap", False)])
 def test_small_mine_on_card_matches_brute_force(cuda, store, use_kernel,
                                                 monkeypatch):
-    if store != "perfect_hash":
-        monkeypatch.setattr(ARRAY_STORES[store], "use_kernel", use_kernel)
+    monkeypatch.setattr(ARRAY_STORES[store], "use_kernel", use_kernel)
     db = get_dataset("T10I4D100K", scale=0.002, seed=0)
     want = brute_force_frequent(db, math.ceil(0.02 * len(db)))
     got = FrequentItemsetMiner(min_support=0.02, store=store).mine(db)
@@ -318,7 +380,8 @@ def _small_db():
 
 
 @pytest.mark.parametrize("store,kernel", [("packed_bitmap", "packed_support_count"),
-                                          ("bitmap", "support_count")])
+                                          ("bitmap", "support_count"),
+                                          ("perfect_hash", "gather_and_count")])
 @pytest.mark.parametrize("trim", [False, True])
 def test_ladder_mine_on_card_matches_brute_force(cuda, store, kernel, trim):
     """The level ladder through a kernel store at its default switch: the
@@ -334,13 +397,29 @@ def test_ladder_mine_on_card_matches_brute_force(cuda, store, kernel, trim):
 
 
 @pytest.mark.parametrize("store,kernel", [("packed_bitmap", "packed_support_count"),
-                                          ("bitmap", "support_count")])
-def test_default_switch_mine_launches_kernel(cuda, store, kernel):
+                                          ("bitmap", "support_count"),
+                                          ("perfect_hash", "gather_and_count")])
+def test_default_switch_mine_launches_kernel(cuda, store, kernel, monkeypatch):
+    """A host-loop mine at the default switch launches its store's kernel
+    once per row block and candidate chunk of every wave, and no other."""
+    assert ARRAY_STORES[store].use_kernel is None
     db, want = _small_db()
-    before = launches[kernel]
+    waves = []
+    orig = MapReduceEngine.count_candidates_async
+
+    def logged(self, cand):
+        waves.append(len(cand))
+        return orig(self, cand)
+
+    monkeypatch.setattr(MapReduceEngine, "count_candidates_async", logged)
+    before = dict(launches)
     got = FrequentItemsetMiner(min_support=0.02, store=store).mine(db)
     assert got.itemsets == want
-    assert launches[kernel] > before
+    expected = math.ceil(len(db) / 2048) * sum(math.ceil(c / 32_768)
+                                               for c in waves)
+    assert {k: launches[k] - before[k] for k in launches} == {
+        k: (expected if k == kernel else 0) for k in launches}
+    assert expected > 0
 
 
 @pytest.mark.parametrize("store", ["sorted_prefix", "hash_bucket"])
@@ -367,7 +446,8 @@ def test_trie_and_hash_tree_stores_match_perfect_hash(cuda, store):
 
 
 KERNEL_STORES = [("packed_bitmap", "packed_support_count"),
-                 ("bitmap", "support_count")]
+                 ("bitmap", "support_count"),
+                 ("perfect_hash", "gather_and_count")]
 
 
 @pytest.mark.parametrize("store,kernel", KERNEL_STORES)
@@ -377,14 +457,17 @@ def test_out_of_core_mine_on_card_matches_resident(cuda, tmp_path, store,
                                                    monkeypatch):
     """A ``.dat`` mined out of core through a kernel store at its default
     switch (chunks shorter than ``block_n``, a ragged last chunk, one chunk
-    of several row blocks) equals the resident ``perfect_hash`` mine; each
-    kernel launch is one row block of one chunk for one candidate chunk."""
+    of several row blocks) equals the resident ``perfect_hash`` mine on its
+    plain path; each kernel launch is one row block of one chunk for one
+    candidate chunk."""
     assert ARRAY_STORES[store].use_kernel is None
     db = get_dataset("BMS_WebView_2", scale=0.02, seed=1)  # 1,550 rows
     path = str(tmp_path / "db.dat")
     write_dat(path, db)
     reader = ChunkedDatasetReader(path, chunk_transactions=chunk)
+    monkeypatch.setattr(ARRAY_STORES["perfect_hash"], "use_kernel", False)
     want = FrequentItemsetMiner(min_support=0.01).mine(db)
+    monkeypatch.setattr(ARRAY_STORES["perfect_hash"], "use_kernel", None)
     waves = []
     orig = TorchRunner._count_chunked_async
 
@@ -405,7 +488,7 @@ def test_out_of_core_mine_on_card_matches_resident(cuda, tmp_path, store,
     assert pad_copies == copies
 
 
-@pytest.mark.parametrize("store", ["packed_bitmap", "bitmap"])
+@pytest.mark.parametrize("store", ["packed_bitmap", "bitmap", "perfect_hash"])
 def test_count_block_short_and_ragged_chunks_match_plain(cuda, store,
                                                          monkeypatch):
     """``count_block`` through the kernel over a chunk shorter than
@@ -572,7 +655,7 @@ db = get_dataset("T10I4D100K", scale=0.05, seed=0)  # 5,000 rows: 3 blocks
 mesh = (make_data_cand_mesh(n_data, n_cand) if n_cand
         else make_data_mesh(n_data))
 rec = {}
-for store in ("packed_bitmap", "bitmap"):
+for store in ("packed_bitmap", "bitmap", "perfect_hash"):
     reset_launches()
     base = FrequentItemsetMiner(min_support=0.02, runner=TorchRunner(
         store=store)).mine(db)

@@ -45,6 +45,7 @@ def _reference(store):
 
 @pytest.mark.parametrize("inflight", [0, 1, None])
 @pytest.mark.parametrize("store,use_kernel", [("perfect_hash", False),
+                                              ("perfect_hash", True),
                                               ("bitmap", True),
                                               ("packed_bitmap", True),
                                               ("packed_bitmap", False)])

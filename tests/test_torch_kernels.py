@@ -3,7 +3,8 @@
 On the CPU the port's wrappers compute with the plain versions (``ref.py``);
 those are held exactly against the JAX package's oracles and its Pallas
 kernels (interpret mode), on the shape, dtype, block and mixed-k cases of
-``test_kernel_support_count.py`` and ``test_packed_store.py``.  The
+``test_kernel_support_count.py`` and ``test_packed_store.py``, and the
+gather-AND-popcount's against the JAX ``perfect_hash`` store's count.  The
 hand-written CUDA kernels are held against the plain versions on a card in
 ``test_torch_cuda.py``.
 """
@@ -16,6 +17,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 from test_torch_stores import one_torch_thread  # noqa: E402,F401
 
+from repro.core.stores import ARRAY_STORES as J_STORES  # noqa: E402
 from repro.core.stores import pack_bitmap as j_pack_bitmap  # noqa: E402
 from repro.core.stores.packed_bitmap import (  # noqa: E402
     pack_candidates_device as j_pack_candidates,
@@ -28,14 +30,20 @@ from repro.kernels.support_count import (  # noqa: E402
 )
 
 from repro_torch.kernels.support_count import (  # noqa: E402
-    build, launches, packed_support_count, packed_support_count_ref,
-    packed_variant, support_count, support_count_ref, tma_operands,
+    build, gather_and_count, gather_and_count_ref, launches,
+    packed_support_count, packed_support_count_ref, packed_variant,
+    support_count, support_count_ref, tma_operands,
 )
 
 BITMAP_SHAPES = [(8, 16, 4, 1), (100, 130, 70, 2), (256, 128, 128, 3),
                  (513, 257, 300, 5), (64, 512, 1024, 4), (1200, 96, 33, 7)]
 PACKED_SHAPES = [(8, 4, 4, 1), (100, 5, 70, 2), (256, 8, 128, 3),
                  (513, 9, 300, 5), (64, 16, 1024, 4)]
+# (Nb, F_pad, C, k, pad rows): ragged row counts around a 32-row word,
+# k 1-5, C 0 and 1, and pad rows (every item f_pad - 1).
+GATHER_SHAPES = [(1, 128, 1, 1, 0), (31, 128, 40, 2, 3), (33, 256, 129, 3, 9),
+                 (2049, 200, 64, 4, 4), (64, 130, 0, 2, 0), (100, 96, 1, 5, 0),
+                 (33, 64, 50, 1, 50)]
 
 
 def _bitmap_case(n, f, c, k, seed):
@@ -83,6 +91,23 @@ def _t(a, dtype=None):
         a = a.view(np.int32)
     t = torch.from_numpy(np.ascontiguousarray(a))
     return t if dtype is None else t.to(dtype)
+
+
+def _gather_case(n, f, c, k, pads, seed):
+    """{0,1} rows with the always-zero pad column f - 1, and (C, k) sorted
+    distinct item ids below it, the first held by row 0; the last ``pads``
+    rows are pad rows."""
+    rng = np.random.default_rng(seed)
+    bitmap = (rng.random((n, f)) < 0.45).astype(np.uint8)
+    bitmap[:, f - 1] = 0
+    cand = np.stack([np.sort(rng.choice(f - 1, k, replace=False))
+                     for _ in range(c)]) if c else np.zeros((0, k))
+    cand = cand.astype(np.int32)
+    if c > pads:
+        bitmap[0, cand[0]] = 1  # at least one real candidate is matched
+    if pads:
+        cand[-pads:] = f - 1
+    return bitmap, cand
 
 
 # -- plain versions on the CPU vs the JAX oracles and Pallas kernels --------
@@ -225,6 +250,26 @@ def test_unpacked_int8_dot_is_the_and_popcount(n, w, c, ks):
     assert want.min() >= 1  # each kvec is some row's true count
 
 
+@pytest.mark.parametrize("n,f,c,k,pads", GATHER_SHAPES)
+def test_gather_and_count_plain_matches_store(n, f, c, k, pads):
+    """The plain version and the wrapper on CPU tensors equal the JAX
+    package's ``perfect_hash`` count and a row-by-row count of the rows
+    holding every item; pad rows count 0."""
+    bitmap, cand = _gather_case(n, f, c, k, pads, seed=n * 13 + c)
+    want = np.asarray(J_STORES["perfect_hash"].count_block(
+        {"bitmap": jnp.asarray(bitmap)}, {"cand": jnp.asarray(cand)}))
+    rows = bitmap[:, cand].astype(bool).all(axis=2).sum(axis=0)
+    np.testing.assert_array_equal(want, rows)
+    for fn in (gather_and_count_ref, gather_and_count):
+        got = fn(_t(bitmap), _t(cand))
+        assert got.dtype == torch.int32 and got.shape == (c,)
+        np.testing.assert_array_equal(got.numpy(), want)
+    if pads:
+        assert not want[-pads:].any()
+    if c > pads:
+        assert want[:c - pads].sum() > 0
+
+
 def test_packed_plain_mixed_k_pads_and_sign_bit():
     """Mixed k with pad rows, and words whose top bit is set (negative as
     int32): the popcount must see the 32 bits, not the sign."""
@@ -245,6 +290,8 @@ def test_cpu_inputs_use_plain_version_without_launch():
     packed_support_count(_t(packed), _t(cpacked), _t(kvec))
     bitmap, khot, kv = _bitmap_case(40, 64, 20, 2, seed=1)
     support_count(_t(bitmap), _t(khot), _t(kv))
+    rows, cand = _gather_case(40, 64, 20, 2, 0, seed=1)
+    gather_and_count(_t(rows), _t(cand))
     assert dict(launches) == before
 
 
@@ -258,13 +305,17 @@ def test_no_fallback_for_other_devices():
                                                device="meta"), kv)
     with pytest.raises(ValueError, match="different devices"):
         support_count(torch.zeros((4, 8)), meta, kv)
+    with pytest.raises(ValueError, match="no kernel"):
+        gather_and_count(meta.to(torch.uint8), torch.empty(
+            (3, 2), dtype=torch.int32, device="meta"))
 
 
-def test_missing_compiler_raises(monkeypatch, tmp_path):
+@pytest.mark.parametrize("name", list(build.KERNELS))
+def test_missing_compiler_raises(monkeypatch, tmp_path, name):
     """Without nvcc the build raises; nothing falls back."""
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        build.kernel("packed_support_count")
+        build.kernel(name)

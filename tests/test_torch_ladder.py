@@ -28,9 +28,9 @@ from repro_torch.core.runtime import device_loop as T_dl  # noqa: E402
 from repro_torch.core.runtime.engine import MapReduceEngine  # noqa: E402
 from repro_torch.core.stores import ARRAY_STORES  # noqa: E402
 
-CONFIGS = [("perfect_hash", None), ("sorted_prefix", None),
-           ("hash_bucket", None), ("bitmap", None), ("bitmap", False),
-           ("bitmap", True), ("packed_bitmap", None),
+CONFIGS = [("perfect_hash", None), ("perfect_hash", True),
+           ("sorted_prefix", None), ("hash_bucket", None), ("bitmap", None),
+           ("bitmap", False), ("bitmap", True), ("packed_bitmap", None),
            ("packed_bitmap", False), ("packed_bitmap", True)]
 CASES = ["seed0", "seed2", "T10I4D100K"] + [f"edge{i}" for i in range(len(EDGE_DBS))]
 _REF = {}

@@ -25,9 +25,10 @@ from repro_torch.core.runtime.job import CountJob, JobProfile  # noqa: E402
 from repro_torch.core.runtime.runners import make_runner  # noqa: E402
 from repro_torch.core.stores import ARRAY_STORES  # noqa: E402
 
-CONFIGS = [("perfect_hash", False), ("bitmap", False), ("bitmap", True),
-           ("packed_bitmap", False), ("packed_bitmap", True)]
-COMBINED_CONFIGS = [("perfect_hash", None), ("sorted_prefix", None),
+CONFIGS = [("perfect_hash", False), ("perfect_hash", True), ("bitmap", False),
+           ("bitmap", True), ("packed_bitmap", False), ("packed_bitmap", True)]
+COMBINED_CONFIGS = [("perfect_hash", None), ("perfect_hash", True),
+                    ("sorted_prefix", None),
                     ("hash_bucket", None), ("bitmap", None), ("bitmap", True),
                     ("packed_bitmap", None), ("packed_bitmap", True)]
 T10_SUPPORT = 0.02

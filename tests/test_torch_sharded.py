@@ -50,7 +50,8 @@ HERE = ["2x1", "1x2"]
 
 # Cases every world runs: (kind, store, option).
 CASES = ([("spc", s, None) for s in STORES]
-         + [("spc", s, True) for s in ("bitmap", "packed_bitmap")]
+         + [("spc", s, True) for s in ("perfect_hash", "bitmap",
+                                       "packed_bitmap")]
          + [("ladder", s, trim) for s in STORES for trim in (False, True)]
          + [("c2", s, None) for s in STORES]
          + [("strategy", "packed_bitmap", "fpc"),

@@ -1,7 +1,8 @@
-"""PyTorch port vs JAX package: the five stores (the kernel stores with the
-switch at None, True and False) on the store-property suite's databases
-(k = 1..4), every store's device-built transaction tensors, and the packed
-encoders' bit identity.  Counts are integers: every comparison is exact.
+"""PyTorch port vs JAX package: the five stores (the three kernel stores
+with the switch at None, True and False) on the store-property suite's
+databases (k = 1..4), every store's device-built transaction tensors, and
+the packed encoders' bit identity.  Counts are integers: every comparison
+is exact.
 """
 
 import numpy as np
@@ -34,10 +35,13 @@ from repro_torch.core.stores.packed_bitmap import (  # noqa: E402
 
 MAX_K = 4
 CASES = [("seed", s) for s in (0, 1, 2)] + [("edge", i) for i in range(len(EDGE_DBS))]
-CONFIGS = [("perfect_hash", None), ("sorted_prefix", None),
+CONFIGS = [("perfect_hash", None), ("perfect_hash", False),
+           ("perfect_hash", True), ("sorted_prefix", None),
            ("hash_bucket", None), ("bitmap", None), ("bitmap", False),
            ("bitmap", True), ("packed_bitmap", None), ("packed_bitmap", False),
            ("packed_bitmap", True)]
+KERNEL_OF = {"perfect_hash": "gather_and_count", "bitmap": "support_count",
+             "packed_bitmap": "packed_support_count"}
 _REF = {}  # (store, case) -> {k: counts}, shared by the kernel on/off runs
 
 
@@ -146,7 +150,7 @@ def test_device_transaction_inputs_match(store, case):
             t.numpy(), w.view(np.int32) if w.dtype == np.uint32 else w)
 
 
-@pytest.mark.parametrize("store", ["bitmap", "packed_bitmap"])
+@pytest.mark.parametrize("store", ["perfect_hash", "bitmap", "packed_bitmap"])
 def test_default_switch_takes_plain_path_on_cpu(store, monkeypatch):
     """With ``use_kernel`` at its default (None), CPU tensors are encoded in
     the plain path's layout and counted without the kernel's wrapper."""
@@ -159,8 +163,8 @@ def test_default_switch_takes_plain_path_on_cpu(store, monkeypatch):
     def refuse(*args):
         raise AssertionError("the kernel wrapper was called")
 
-    monkeypatch.setattr(kernels, "support_count", refuse)
-    monkeypatch.setattr(kernels, "packed_support_count", refuse)
+    for name in KERNEL_OF.values():
+        monkeypatch.setattr(kernels, name, refuse)
     n_items, db = _random_db(0)
     jenc = j_encode_db(db, n_items=n_items)
     enc = encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items)
@@ -169,10 +173,39 @@ def test_default_switch_takes_plain_path_on_cpu(store, monkeypatch):
     cands = cls.encode_candidates(torch.from_numpy(cand), f_pad=enc.f_pad)
     if store == "bitmap":
         assert cands["khot"].dtype == torch.float32
-    else:
+    elif store == "packed_bitmap":
         assert set(cands) == {"packedT", "kvec"}
     np.testing.assert_array_equal(cls.count_block(trans, cands).numpy()[:len(
         _candidates(db, 2))], _reference_counts(store, ("seed", 0))[2])
+
+
+@pytest.mark.parametrize("use_kernel", [None, False, True])
+@pytest.mark.parametrize("store", list(KERNEL_OF))
+def test_switch_picks_the_counting_path(store, use_kernel, monkeypatch):
+    """On CPU tensors ``count_block`` calls its kernel's wrapper exactly
+    when ``use_kernel`` is True (the wrapper then computes with the plain
+    version), and the counts are the same either way."""
+    from repro_torch.kernels import support_count as kernels
+
+    cls = _switch(monkeypatch, store, use_kernel)
+    calls = []
+    wrapper = getattr(kernels, KERNEL_OF[store])
+
+    def recorded(*args):
+        calls.append(len(args))
+        return wrapper(*args)
+
+    monkeypatch.setattr(kernels, KERNEL_OF[store], recorded)
+    n_items, db = _random_db(2)
+    jenc = j_encode_db(db, n_items=n_items)
+    enc = encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items)
+    trans = {n: torch.from_numpy(v) for n, v in cls.transaction_inputs(enc).items()}
+    cand = pad_candidates(level_to_matrix(_candidates(db, 2)), enc.f_pad)
+    cands = cls.encode_candidates(torch.from_numpy(cand), f_pad=enc.f_pad)
+    got = cls.count_block(trans, cands)
+    assert len(calls) == (use_kernel is True)
+    np.testing.assert_array_equal(got.numpy()[:len(_candidates(db, 2))],
+                                  _reference_counts(store, ("seed", 2))[2])
 
 
 @pytest.mark.parametrize("seed", range(4))
