@@ -12,9 +12,15 @@ result line) when it fails:
 2. every kernel against its plain PyTorch version on the card, exactly
    (counts are integers), at the shapes the main path gives it on
    T10I4D100K (the host loop's 32,768-candidate C2 chunk and the level
-   ladder's whole 127,264-row C2; for the bitmap and gather kernels also
-   BMS_WebView_2's C2: F_pad = 128, and for the gather kernel a
-   32,768-row chunk of triples; and phase 6's serving shapes: the
+   ladder's whole 127,264-row C2, over a 2,048-row block, and for the
+   gather kernel, which counts a chunk over every row in one call, over all
+   100,000 rows, its 2,048-row block kept as a further shape; for the
+   bitmap and gather kernels also BMS_WebView_2's C2: F_pad = 128, and for
+   the gather kernel a 32,768-row chunk of triples and the benchmark's
+   chunk over eight of its row tiles (2^20 rows at F_pad 1,024 against
+   32,768 pairs, and a 1,000,003-row view of them at an offset against
+   32,768 triples, its last tile ragged); and phase 6's serving
+   shapes: the
    first and last 32,768-candidate chunks of the tracked C2 at F_pad 640
    over a one-row delta block, a 1,077-row slot tail and a full row
    block, and for the packed kernel the whole tracked C2 as one chunk over
@@ -45,7 +51,9 @@ result line) when it fails:
    supports must equal the ``perfect_hash`` SPC mine's; every kernel's
    launch count must equal what its path asks for (row blocks x candidate
    chunks of every counting wave on the host loop; row blocks of every
-   level on the ladder, which counts a level in one pass), each kernel must
+   level on the ladder, which counts a level in one pass; ``perfect_hash``'s
+   kernel takes all of a chunk's rows in one call, so its row blocks count
+   one: ``row_calls``), each kernel must
    launch on every path, and no bitmap count may take the wrapper's pad
    copy;
 5. out-of-core mining: the same two workloads written to ``.dat`` files in a
@@ -251,6 +259,18 @@ STORES = ["packed_bitmap", "bitmap", "perfect_hash", "sorted_prefix",
           "hash_bucket"]
 
 
+def row_calls(store: str, n: int, block_n: int = BLOCK_N) -> int:
+    """A kernel's launches for one candidate chunk over n rows on the card:
+    one where the store counts every row in one call there
+    (``counts_whole_rows``), else one a ``block_n``-row block."""
+    import torch
+    from repro_torch.core.stores import ARRAY_STORES
+
+    if ARRAY_STORES[store].counts_whole_rows(torch.device("cuda")):
+        return int(n > 0)
+    return math.ceil(n / block_n)
+
+
 def smi(fields: str) -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
@@ -444,15 +464,24 @@ def time_packed_shape(a, b, kv, sm_rate, int8_rate):
     return row
 
 
+def gather_plain(bitmap, cand):
+    """The gather kernel's plain version (the store's gathers) a
+    ``BLOCK_N``-row block at a time, summed: the same function as one call
+    over every row, with the (Nb, C) masks of a block at a time."""
+    from repro_torch.kernels.support_count import gather_and_count_ref
+
+    return sum(gather_and_count_ref(bitmap[i:i + BLOCK_N], cand)
+               for i in range(0, bitmap.shape[0], BLOCK_N))
+
+
 def time_gather_shape(bitmap, cand):
     """Times of the gather kernel and its plain version (the store's
-    gathers) at one shape; no single PyTorch call computes the same
-    function.  Its floor is the bytes a block must take from device memory
-    in a job, the rows, ids and counts once; the candidates' column words
+    gathers, ``gather_plain``) at one shape; no single PyTorch call computes
+    the same function.  Its floor is the bytes a call must take from device
+    memory, the rows, ids and counts once; the candidates' column words
     (``l2_bytes``) come from L2, whose bandwidth the data sheet does not
     state, so they are left out of it."""
-    from repro_torch.kernels.support_count import (
-        gather_and_count, gather_and_count_ref)
+    from repro_torch.kernels.support_count import gather_and_count
 
     n, f = bitmap.shape
     c, k = cand.shape
@@ -463,7 +492,7 @@ def time_gather_shape(bitmap, cand):
 
     row = {"n": n, "c": c, "width": f, "k": k,
            "ms": cuda_ms(kernel, reps=50),
-           "plain_ms": cuda_ms(lambda: gather_and_count_ref(bitmap, cand),
+           "plain_ms": cuda_ms(lambda: gather_plain(bitmap, cand),
                                reps=3, warmup=1),
            "bound_ms": (n * f + c * k * 4 + c * 4) / HBM_BYTES_PER_S * 1e3,
            "bound_by": "bytes", "l2_bytes": (c * k + f) * words * 4,
@@ -489,7 +518,7 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
     from repro_torch.core.stores.packed_bitmap import (
         PackedBitmapStore, pack_candidates_device)
     from repro_torch.kernels.support_count import (
-        gather_and_count, gather_and_count_ref, packed_support_count,
+        gather_and_count, packed_support_count,
         packed_support_count_ref, support_count, support_count_ref)
 
     dev = torch.device("cuda")
@@ -517,6 +546,9 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
     packed = torch.from_numpy(enc.packed[:BLOCK_N]).to(dev)
     bitmap = torch.from_numpy(enc.bitmap[:BLOCK_N]).to(dev)
     bitmap_bms = torch.from_numpy(enc_bms.bitmap[:BLOCK_N]).to(dev)
+    # The gather kernel counts a chunk over every resident row in one call.
+    bitmap_all = torch.from_numpy(enc.bitmap).to(dev)
+    bitmap_bms_all = torch.from_numpy(enc_bms.bitmap).to(dev)
     cand_bms = first_c2_chunk(enc_bms)
     pc = PackedBitmapStore.encode_candidates(cand, f_pad=enc.f_pad)
     pc_l = PackedBitmapStore.encode_candidates(cand_l, f_pad=enc.f_pad)
@@ -573,6 +605,24 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
         bm[:, f - 1] = 0
         return torch.from_numpy(bm).to(dev)[skip:], gather_ids(f, c, k, pads)
 
+    def device_bitmap(n, f):
+        """A (n, f) {0,1} bitmap made on the card from the rng (a host copy
+        of 2^20 rows would take minutes): column j set with its own
+        probability below 5 %, the last column zero."""
+        g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**62)))
+        p = torch.rand(f, generator=g, device=dev) * 0.05
+        p[-1] = 0
+        return torch.cat([(torch.rand((m, f), generator=g, device=dev) < p)
+                          .to(torch.uint8)
+                          for m in [BLOCK_N * 64] * (n // (BLOCK_N * 64))
+                          + [n % (BLOCK_N * 64)]])
+
+    # The benchmark's chunk (t10i4-c2-hash): 2^20 rows at F_pad 1,024, eight
+    # of the gather kernel's row tiles, against a 32,768-pair C2 chunk; and
+    # a view at an offset of 1,000,003 of its rows (N no multiple of
+    # 128, the eighth tile ragged) against a chunk of triples.
+    bitmap_bench = device_bitmap(1 << 20, 1024)
+
     def bitmap_case(n, f, c, ks, pads):
         bm = (rng.random((n, f)) < 0.3).astype(np.uint8)
         khot = np.zeros((c, f), np.int8)
@@ -617,14 +667,20 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
                     bitmap_case(1, 64, 300, [1], 0),
                     bitmap_case(1000, 96, 600, [2, 3], 7)]},
         {"name": "gather_and_count", "kernel": gather_and_count,
-         "plain": gather_and_count_ref,
+         "plain": gather_plain,
          "source": "src/repro_torch/kernels/support_count/csrc/gather_and_count.cu",
          "replaces": "src/repro/core/stores/perfect_hash.py:44",
-         "main": (bitmap, cand),
-         "ladder": (bitmap, cand_l),
-         # BMS_WebView_2's C2, and a C3 chunk of T10I4D100K's items.
-         "more": [(bitmap_bms, cand_bms),
-                  (bitmap, gather_ids(enc.n_items + 1, CAND_BLOCK, 3, 0))],
+         "main": (bitmap_all, cand),
+         "ladder": (bitmap_all, cand_l),
+         # BMS_WebView_2's C2 and a C3 chunk of T10I4D100K's items, over
+         # every row; the C2 chunk over one 2,048-row block; the benchmark's
+         # chunk over several row tiles.
+         "more": [(bitmap_bms_all, cand_bms),
+                  (bitmap_all, gather_ids(enc.n_items + 1, CAND_BLOCK, 3, 0)),
+                  (bitmap, cand),
+                  (bitmap_bench, gather_ids(1024, CAND_BLOCK, 2, 64)),
+                  (bitmap_bench[37:1_000_040],
+                   gather_ids(1024, CAND_BLOCK, 3, 0))],
          "serve": [(bitmap_s[n], x) for n in serve_rows for x in chunks_s],
          "ragged": [gather_case(1, 640, 1000, 2, 10),
                     gather_case(31, 128, 129, 3, 5),
@@ -715,7 +771,7 @@ class WaveLog:
 
     def expected(self, store: str, n: int) -> int:
         """Launches of ``store``'s waves over ``n`` resident rows."""
-        return math.ceil(n / BLOCK_N) * sum(
+        return row_calls(store, n) * sum(
             math.ceil(c / CAND_BLOCK)
             for c, s in zip(self.sizes, self.stores) if s == store)
 
@@ -793,10 +849,10 @@ def main_path(workloads):
                     raise AssertionError(f"{store}: {pad_copies} pad copies "
                                          "on the main path")
                 if path == "ladder":
-                    expected = sum(math.ceil(p.n_pad / BLOCK_N)
+                    expected = sum(row_calls(store, p.n_pad)
                                    for p in res.levels[1:])
                 else:
-                    blocks = math.ceil(res.n_transactions / BLOCK_N)
+                    blocks = row_calls(store, res.n_transactions)
                     expected = blocks * sum(math.ceil(c / CAND_BLOCK)
                                             for c in waves.sizes)
                 want = {k: (expected if k == KERNEL_OF.get(store) else 0)
@@ -903,7 +959,7 @@ def out_of_core(workloads, bases):
                     raise AssertionError(f"{store}: {pad_copies} pad copies "
                                          "out of core")
                 expected = (sum(math.ceil(c / CAND_BLOCK) for c in waves.sizes)
-                            * sum(math.ceil(r / BLOCK_N) for r in rows))
+                            * sum(row_calls(store, r) for r in rows))
                 want = {k: (expected if k == KERNEL_OF.get(store) else 0)
                         for k in got}
                 p1 = res.levels[0]
@@ -1023,14 +1079,15 @@ class ServeLog:
                 yield prof, freq
         return logged
 
-    def expected(self) -> int:
-        """Kernel launches of everything logged: candidate chunks x row
-        blocks of every delta job and wave (nothing for an empty side),
-        row blocks of every ladder level (one pass a level)."""
+    def expected(self, store: str) -> int:
+        """``store``'s kernel launches of everything logged: candidate
+        chunks x row blocks of every delta job and wave (nothing for an
+        empty side), row blocks of every ladder level (one pass a level);
+        ``row_calls`` says how many calls a chunk's rows take."""
         def job(n, c, chunk):
-            return math.ceil(c / chunk) * math.ceil(n / BLOCK_N)
+            return math.ceil(c / chunk) * row_calls(store, n)
         return (sum(job(*d) for d in self.deltas + self.waves)
-                + sum(math.ceil(n / BLOCK_N) for n in self.levels))
+                + sum(row_calls(store, n) for n in self.levels))
 
     def __exit__(self, *exc):
         for cls, name, orig in reversed(self._saved):
@@ -1198,7 +1255,7 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches,
                              f"(max_drift {drifts}, reasons "
                              f"{[st['reason'] for st in steps]})")
     got = dict(launches)
-    expected = log.expected()
+    expected = log.expected(store)
     want = {k: (expected if k == kernel else 0) for k in got}
     if got != want or len(log.deltas) != stats["delta_jobs"]:
         raise AssertionError(f"{name} {store}: launches {got} != {want} or "
@@ -1495,7 +1552,7 @@ def resume_program(name, db, base, store, device_loop, k_loss):
             got = dict(launches)
         new = [p for p in res.levels if p.k >= k_loss]
         if device_loop:
-            expected = sum(math.ceil(p.n_pad / BLOCK_N) for p in new)
+            expected = sum(row_calls(store, p.n_pad) for p in new)
         else:
             if waves.sizes != [p.n_candidates for p in new]:
                 raise AssertionError(f"resume waves {waves.sizes} != the "
@@ -1701,8 +1758,8 @@ class LadderLog:
         LevelLadder._count = count
         return self
 
-    def expected(self) -> int:
-        return sum(math.ceil(r / BLOCK_N) for r in self.rows)
+    def expected(self, store: str) -> int:
+        return sum(row_calls(store, r) for r in self.rows)
 
     def __exit__(self, *exc):
         from repro_torch.core.runtime.device_loop import LevelLadder
@@ -1741,12 +1798,13 @@ def sharded_mine(db, support, store, shape, ladder=False, runner=None,
         got = dict(launches)
     eng = miner.active_runner.engine
     if ladder:
-        expected = levels.expected()
+        expected = levels.expected(store)
     else:
         before, rows = split or (0, 0)
         expected = sum(
-            math.ceil((rows if i < before else eng._local_enc.n_transactions)
-                      / BLOCK_N) * math.ceil(c / CAND_BLOCK)
+            row_calls(store, rows if i < before
+                      else eng._local_enc.n_transactions)
+            * math.ceil(c / CAND_BLOCK)
             for i, c in enumerate(waves.sizes))
     kernel = KERNEL_OF.get(store)
     want = {k: (expected if k == kernel else 0) for k in got}
@@ -2311,7 +2369,7 @@ def token_miner_phase(support=0.01, steps=4, batch=256, seq_len=4096):
         if waves.sizes != sizes:
             raise AssertionError(f"token miner {store}: waves {waves.sizes} "
                                  f"!= JobProfile candidates {sizes}")
-        blocks = math.ceil(res.n_transactions / BLOCK_N)
+        blocks = row_calls(store, res.n_transactions)
         expected = blocks * sum(math.ceil(c / CAND_BLOCK) for c in sizes)
         want = {k: (expected if k == KERNEL_OF.get(store) else 0) for k in got}
         n_items = res.levels[0].n_frequent

@@ -7,13 +7,15 @@ Runs one cell of ``BENCHMARK.json`` once through the benchmark's harness,
 in this process, as ``perfbench/run.py`` does, from the checkout at
 ``--root`` (default: this one), and watches every count job of the
 program's runner: its wall seconds, its ``JobProfile``, whether a
-profiler recorded, and the seconds and calls that each span of
+profiler recorded, the seconds and calls that each span of
 ``repro_torch.trace`` gained in it (none where the program has no such
-module).  Prints one JSON object, and writes it to ``--out``: the
-harness's result line, every job, the means over the window's jobs (with
-``--trace 1`` the untraced jobs and the traced ones apart, and the traced
-window's longest idle gaps with the host events around each), and the
-host cost of one span with no profiler running.
+module), and the launches each hand-written kernel gained in it
+(``repro_torch.kernels.support_count.launches``).  Prints one JSON
+object, and writes it to ``--out``: the harness's result line, every job,
+the means over the window's jobs (with ``--trace 1`` the untraced jobs and
+the traced ones apart, and the traced window's longest idle gaps with the
+host events around each), and the host cost of one span with no profiler
+running.
 """
 
 from __future__ import annotations
@@ -44,12 +46,14 @@ def _totals():
 def _watch(runner_cls, jobs):
     """Wrap ``runner_cls.count`` to append one record a job to ``jobs``."""
     import torch
+    from repro_torch.kernels.support_count import launches
 
     count = runner_cls.count
 
     def watched(self, job):
         traced = torch.autograd._profiler_enabled()
         before = _totals()
+        launched = dict(launches)
         t0 = time.perf_counter()
         counts, prof = count(self, job)
         wall = time.perf_counter() - t0
@@ -60,7 +64,10 @@ def _watch(runner_cls, jobs):
                  if c != before.get(n, (0.0, 0))[1]}
         jobs.append({"k": job.k, "traced": traced, "wall": wall,
                      "seconds": prof.seconds,
-                     "encode_seconds": prof.encode_seconds, "spans": spans})
+                     "encode_seconds": prof.encode_seconds, "spans": spans,
+                     "launches": {n: launches[n] - launched.get(n, 0)
+                                  for n in launches
+                                  if launches[n] != launched.get(n, 0)}})
         return counts, prof
 
     runner_cls.count = watched

@@ -1,7 +1,8 @@
 """MapReduce counting engine on PyTorch, on one device or over a mesh of
 ``torch.distributed`` ranks.
 
-Mapper = the per-block count over this rank's transaction tensors;
+Mapper = the per-block count over this rank's transaction tensors (one
+block of every row where the store's kernel takes any N);
 Combiner = the in-block reduction inside the store's ``count_block`` (sum
 over Nb); Shuffle + Reducer = the sum over row blocks, then ``all_reduce``
 of the per-shard count vectors over the ``data`` group (the reference's
@@ -230,11 +231,18 @@ class MapReduceEngine:
         self._local_enc = local
 
     def _blocked_count(self, trans: dict, cands: dict) -> torch.Tensor:
-        """Mapper body: a loop over Nb-row blocks bounds peak (Nb, C) memory;
-        a ragged tail block is counted on its own.  One span covers the
-        whole loop: a span a block would put thousands of profiler ranges
-        in a traced job."""
-        n = next(iter(trans.values())).shape[0]
+        """Mapper body.  Where the store's count keeps no (Nb, C)
+        intermediate on these tensors (``counts_whole_rows``, the
+        ``perfect_hash`` kernel on the card), one call counts every row;
+        otherwise a loop over Nb-row blocks bounds peak (Nb, C) memory, a
+        ragged tail block counted on its own.  One span covers the whole
+        loop: a span a block would put thousands of profiler ranges in a
+        traced job."""
+        first = next(iter(trans.values()))
+        if self.store.counts_whole_rows(first.device):
+            with span("repro_torch.engine.launch"):
+                return self.store.count_block(trans, cands)
+        n = first.shape[0]
         block_n = max(1, min(self.block_n, n))  # n == 0 guarded by callers
         n_blocks = max(1, n // block_n)
         usable = n_blocks * block_n
@@ -451,7 +459,7 @@ class MapReduceEngine:
         The block's store tensors go to the device with the dispatch
         (nothing is re-placed, so the resident DB is untouched); the
         candidates go in ``cand_block`` chunks, each encoded on the device
-        and counted by ``_blocked_count`` over the block's row blocks, and
+        and counted by ``_blocked_count`` over the block's rows, and
         the results flow through the same FIFO as the wave pipeline, with
         at most ``inflight`` outstanding.
         """

@@ -209,6 +209,14 @@ class DeltaCountMixin:
     store's own ``count_block``."""
 
     @classmethod
+    def counts_whole_rows(cls, device) -> bool:
+        """Whether ``count_block`` on tensors of ``device`` keeps no (Nb, C)
+        intermediate, so the engine may hand it every row in one call; a
+        store whose count does not says False and gets ``block_n``-row
+        blocks."""
+        return False
+
+    @classmethod
     def apply_delta(cls, counts: torch.Tensor, trans_block: dict,
                     cands: dict, sign: int) -> torch.Tensor:
         """counts + sign * the block's contribution (int64, pure):

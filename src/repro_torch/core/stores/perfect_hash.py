@@ -11,7 +11,10 @@ columns, so no (Nb, C) mask reaches device memory.  On CPU tensors the
 plain path gathers: the level loop is unrolled (k is fixed per wave), so
 peak memory is one (Nb, C) mask, never (Nb, C, k).  ``use_kernel``
 (``KernelSwitchMixin``) can force either path; on the card the plain path
-(``use_kernel=False``) is the kernel's cross-check.
+(``use_kernel=False``) is the kernel's cross-check.  The kernel keeps no
+(Nb, C) intermediate and takes any number of rows, so where it runs
+(``counts_whole_rows``) the engine counts a chunk over all of its rows in
+one call instead of looping over ``block_n``-row blocks.
 """
 
 from __future__ import annotations
@@ -48,6 +51,13 @@ class PerfectHashStore(KernelSwitchMixin, DeltaCountMixin):
         """Tensor name -> axis carrying C, for every tensor
         ``encode_candidates`` returns."""
         return {"cand": 0}
+
+    @classmethod
+    def counts_whole_rows(cls, device) -> bool:
+        """True where ``count_block`` on tensors of ``device`` runs the
+        kernel: its only intermediate is a bit-packed copy of the rows, an
+        eighth of the bitmap, so one call may cover every resident row."""
+        return torch.device(device).type == "cuda" and cls.kernel_on(device)
 
     @classmethod
     def count_block(cls, trans: dict, cands: dict) -> torch.Tensor:

@@ -67,7 +67,7 @@ def _check(name: str, t: torch.Tensor, dtypes, ndim: int) -> None:
 def _stream(device: torch.device) -> int:
     """The raw handle of ``device``'s current stream.  Unlike
     ``torch.cuda.current_stream().cuda_stream`` it builds no Stream object:
-    the main path launches once a row block, where a host step costs about
+    kernels 1 and 2 launch once a row block, where a host step costs about
     as much as the kernel."""
     return torch._C._cuda_getCurrentRawStream(device.index)
 
@@ -170,12 +170,11 @@ def gather_and_count(bitmap: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     the number of ``bitmap`` (N, F) {0,1} rows in which all k columns are
     set.  Any row view is read as is (an offset, F not a multiple of 16).
 
-    The kernel packs the rows' columns into an (F, ceil(N/32)) word
-    scratch, then ANDs and popcounts each candidate's columns.  The counts
-    and the scratch share one allocation, the counts first (the main path
-    calls this once a 2,048-row block, where an allocation costs as much as
-    a kernel), so the returned counts are a view that keeps the scratch
-    alive with them."""
+    The kernel packs the rows' columns into an (F, 4 ceil(N/128)) word
+    scratch, then ANDs and popcounts each candidate's columns tile by tile
+    of rows, so one call takes any N (the engine's whole chunk).  The
+    scratch is freed on return (the allocator reuses it in stream order);
+    the counts are an allocation of their own and keep nothing else alive."""
     if _on_cpu(bitmap, cand):
         return gather_and_count_ref(bitmap, cand)
     _check("bitmap", bitmap, (torch.int8, torch.uint8), 2)
@@ -186,10 +185,10 @@ def gather_and_count(bitmap: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
         raise ValueError("cand: a candidate needs at least one item")
     if n == 0 or c == 0:
         return torch.zeros((c,), dtype=torch.int32, device=bitmap.device)
-    head = -(-c // 32) * 32  # the scratch starts on a 128-byte line
-    buf = bitmap.new_empty((head + f * -(-n // 32),), dtype=torch.int32)
+    out = torch.empty((c,), dtype=torch.int32, device=bitmap.device)
+    bits = bitmap.new_empty((f * 4 * -(-n // 128),), dtype=torch.int32)
     with torch.cuda.device(bitmap.device.index):
         _launch("gather_and_count", bitmap.data_ptr(), cand.data_ptr(),
-                buf.data_ptr() + 4 * head, buf.data_ptr(), n, f, c, k,
+                bits.data_ptr(), out.data_ptr(), n, f, c, k,
                 _stream(bitmap.device))
-    return buf[:c]
+    return out

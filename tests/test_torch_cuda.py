@@ -11,17 +11,19 @@ device (counts are integers), on ragged shapes, C larger than a tile, mixed
 k with kvec = -1 pad rows, and wide vocabularies; the bitmap kernel also on
 the edges of its TMA/wgmma design (``WGMMA_EDGES``), and the
 gather-AND-popcount kernel of ``perfect_hash`` on row counts around its
-32-row words, trimmed widths, k up to 9 and pad rows (``GATHER_CASES``).
+32-row words, trimmed widths, k up to 9, pad rows and N over several of its
+row tiles (``GATHER_CASES``).
 Small mines through each store on the card (host loop and level ladder, the
 kernel stores with the kernel on and off) are held against brute-force
 counting, the trie and hash-tree stores against ``perfect_hash``, and a
 mine with the default kernel switch must move its kernel's launch counter
-by row blocks x candidate chunks and no other.  Out of core, a ``.dat``
-mined through ``ChunkedDatasetReader`` with the kernels on must equal the
-resident ``perfect_hash`` mine on its plain path, and the block count of a
-chunk shorter than ``block_n`` and of a ragged final chunk must equal the
-plain path's.  A
-device loss on the card at k = 3 abandons the engine's queue, and a fresh
+by row blocks x candidate chunks and no other (``perfect_hash``, whose
+kernel counts all rows in one call, by candidate chunks: ``row_calls``,
+shared with ``chip_smoke.py``).  Out of core, a ``.dat`` mined through
+``ChunkedDatasetReader`` with the kernels on must equal the resident
+``perfect_hash`` mine on its plain path, and the block count of a chunk
+shorter than ``block_n`` and of a ragged final chunk must equal the plain
+path's.  A device loss on the card at k = 3 abandons the engine's queue, and a fresh
 runner resumes from the level checkpoint with the clean answer; a parity
 cell holds the Hadoop model (``sim/trie``) to ``packed_bitmap`` on the card.
 Spawned ``torch.distributed`` worlds mine through ``ShardedRunner``: one
@@ -29,6 +31,8 @@ NCCL rank, and two gloo ranks sharing the card on 1x2 and 2x1 meshes, each
 with the ``TorchRunner`` answer and the launches its shard asks for.
 """
 
+import functools
+import importlib.util
 import json
 import math
 import os
@@ -55,6 +59,24 @@ from repro_torch.kernels.support_count import (  # noqa: E402
 from repro_torch.launch.multihost import launch_cluster  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@functools.cache
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def row_calls(store, n, block_n=2048):
+    """Kernel launches of one candidate chunk over n rows: ``chip_smoke``'s
+    count, which asks the store whether it counts every row in one call."""
+    return _chip_smoke().row_calls(store, n, block_n)
 
 
 @pytest.fixture
@@ -294,6 +316,10 @@ def test_kernel_on_row_block_views(cuda):
 # 3,456 and trimmed widths that are no multiple of 128 (949, odd, so rows
 # start at every byte offset); k 1-6 unrolled and 9 looped; C 1, 129 and
 # 70,000; a row block viewed at an offset, as the engine hands it over.
+# Then whole chunks over several row tiles (a tile is about 16 MB of column
+# words: 131,072 rows at F 1,024, 141,312 at F 949, 1,048,576 at F 128), N
+# not a multiple of 32 and a ragged last tile: k 1-8 unrolled and 9 looped,
+# F_pad 128 and 1,024 and a trimmed F, a view at an offset.
 GATHER_CASES = {
     "n1_k1": (1, 128, 129, 1, 0, None),
     "n31_pads": (31, 1024, 129, 2, 5, None),
@@ -306,6 +332,16 @@ GATHER_CASES = {
     "k9_looped": (300, 256, 500, 9, 5, None),
     "view_at_offset": (3048, 1024, 4096, 2, 0, (1000, 3048)),
     "wide_c1": (700, 3456, 1, 1, 0, None),
+    "tiles3_k1": (300_001, 1024, 1000, 1, 3, None),
+    "tiles3_k2": (300_001, 1024, 4096, 2, 7, None),
+    "tiles3_k3_trimmed": (300_007, 949, 2000, 3, 0, None),
+    "tiles3_k4": (262_145, 1024, 1000, 4, 0, None),
+    "tiles2_k5_f128": (1_100_003, 128, 129, 5, 5, None),
+    "tiles3_k6_trimmed": (283_000, 949, 1000, 6, 0, None),
+    "tiles3_k7": (300_001, 1024, 500, 7, 2, None),
+    "tiles3_k8_f128": (2_100_001, 128, 129, 8, 0, None),
+    "tiles3_k9_looped": (300_001, 1024, 500, 9, 0, None),
+    "tiles3_view_at_offset": (301_000, 1024, 1000, 2, 0, (1000, 300_999)),
 }
 
 
@@ -385,14 +421,15 @@ def _small_db():
 @pytest.mark.parametrize("trim", [False, True])
 def test_ladder_mine_on_card_matches_brute_force(cuda, store, kernel, trim):
     """The level ladder through a kernel store at its default switch: the
-    kernel launches once per row block and level (one unchunked pass)."""
+    kernel launches once per row block and level (one unchunked pass;
+    ``perfect_hash`` once a level)."""
     assert ARRAY_STORES[store].use_kernel is None
     db, want = _small_db()
     before = launches[kernel]
     got = FrequentItemsetMiner(min_support=0.02, store=store, device_loop=True,
                                trim=trim, block_n=64).mine(db)
     assert got.itemsets == want
-    expected = sum(math.ceil(p.n_pad / 64) for p in got.levels[1:])
+    expected = sum(row_calls(store, p.n_pad, 64) for p in got.levels[1:])
     assert launches[kernel] - before == expected > 0
 
 
@@ -401,7 +438,8 @@ def test_ladder_mine_on_card_matches_brute_force(cuda, store, kernel, trim):
                                           ("perfect_hash", "gather_and_count")])
 def test_default_switch_mine_launches_kernel(cuda, store, kernel, monkeypatch):
     """A host-loop mine at the default switch launches its store's kernel
-    once per row block and candidate chunk of every wave, and no other."""
+    once per row block and candidate chunk of every wave (``perfect_hash``
+    once a chunk), and no other."""
     assert ARRAY_STORES[store].use_kernel is None
     db, want = _small_db()
     waves = []
@@ -415,7 +453,7 @@ def test_default_switch_mine_launches_kernel(cuda, store, kernel, monkeypatch):
     before = dict(launches)
     got = FrequentItemsetMiner(min_support=0.02, store=store).mine(db)
     assert got.itemsets == want
-    expected = math.ceil(len(db) / 2048) * sum(math.ceil(c / 32_768)
+    expected = row_calls(store, len(db)) * sum(math.ceil(c / 32_768)
                                                for c in waves)
     assert {k: launches[k] - before[k] for k in launches} == {
         k: (expected if k == kernel else 0) for k in launches}
@@ -458,8 +496,8 @@ def test_out_of_core_mine_on_card_matches_resident(cuda, tmp_path, store,
     """A ``.dat`` mined out of core through a kernel store at its default
     switch (chunks shorter than ``block_n``, a ragged last chunk, one chunk
     of several row blocks) equals the resident ``perfect_hash`` mine on its
-    plain path; each kernel launch is one row block of one chunk for one
-    candidate chunk."""
+    plain path; each kernel launch is one row block (``perfect_hash``: all
+    rows) of one chunk for one candidate chunk."""
     assert ARRAY_STORES[store].use_kernel is None
     db = get_dataset("BMS_WebView_2", scale=0.02, seed=1)  # 1,550 rows
     path = str(tmp_path / "db.dat")
@@ -483,7 +521,7 @@ def test_out_of_core_mine_on_card_matches_resident(cuda, tmp_path, store,
     assert all(p.chunks == reader.n_chunks for p in got.levels)
     rows = [min(chunk, len(db) - i) for i in range(0, len(db), chunk)]
     expected = (sum(math.ceil(c / 512) for c in waves)
-                * sum(math.ceil(r / 256) for r in rows))
+                * sum(row_calls(store, r, 256) for r in rows))
     assert launches[kernel] - before == expected > 0
     assert pad_copies == copies
 
@@ -685,7 +723,8 @@ def test_sharded_mine_on_card_matches_torch_runner(cuda, tmp_path, backend,
     ``TorchRunner`` answer; each rank launches its kernel once per row block
     of its shard per candidate chunk: the single device's count on 1x1 and
     1x2 (half of each chunk a launch), ceil(2,500 / 2,048) = 2 of its 3 row
-    blocks on 2x1."""
+    blocks on 2x1 (``perfect_hash``: one call over its rows, as on one
+    device)."""
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
     out = str(tmp_path / "rank")
@@ -699,8 +738,8 @@ def test_sharded_mine_on_card_matches_torch_runner(cuda, tmp_path, backend,
             rec = recs[store]
             assert rec["same"] and rec["n"] > 0
             assert rec["collectives"] > 0
-            blocks = math.ceil(5000 / 2048)
-            local = math.ceil(rec["local_rows"] / 2048)
+            blocks = row_calls(store, 5000)
+            local = row_calls(store, rec["local_rows"])
             assert rec["local_rows"] == 5000 // n_data
             want = rec["base"][kernel] // blocks * local
             assert rec["sharded"] == {
@@ -760,7 +799,8 @@ def test_serve_engine_on_card_matches_cpu(cuda, arch):
 def test_token_set_miner_on_card(cuda, store, kernel):
     """``TokenSetMiner`` on the card through a kernel store equals the CPU
     ``perfect_hash`` mine, and its kernel launches once per row block and
-    candidate chunk of every level (SPC: one wave per level)."""
+    candidate chunk of every level (SPC: one wave per level; ``perfect_hash``
+    once a chunk)."""
     from repro_torch.analytics import TokenSetMiner
     from repro_torch.data.pipeline import SyntheticLM
 
@@ -771,7 +811,7 @@ def test_token_set_miner_on_card(cuda, store, kernel):
     got = TokenSetMiner(min_support=0.05, store=store, window=32).mine_steps(
         pipe, [0, 1])
     assert got.itemsets == want.itemsets and got.max_k == 4
-    blocks = math.ceil(got.n_transactions / 2048)
+    blocks = row_calls(store, got.n_transactions)
     expected = blocks * sum(math.ceil(p.n_candidates / 32_768)
                             for p in got.levels[1:])
     assert {k: launches[k] - before[k] for k in launches} == {

@@ -2,7 +2,9 @@
 
 Job1 histograms and ``count_candidates`` at ``inflight`` 0, 1 and None
 (auto-sized), with ``cand_block`` smaller than the wave and a ragged
-``block_n`` tail, against ``MapReduceEngine`` on the same encoded DB.
+``block_n`` tail, against ``MapReduceEngine`` on the same encoded DB; and
+the rows each ``count_block`` call gets: all of them where the store
+counts whole rows, ``block_n``-row blocks and a tail otherwise.
 """
 
 import numpy as np
@@ -17,7 +19,8 @@ from repro.core.stores import padded_from_transactions as j_padded  # noqa: E402
 from test_torch_stores import one_torch_thread  # noqa: E402,F401
 
 from repro_torch.core.runtime.engine import MapReduceEngine as TEngine  # noqa: E402
-from repro_torch.core.stores import ARRAY_STORES, encoded_db_from_numpy  # noqa: E402
+from repro_torch.core.stores import (  # noqa: E402
+    ARRAY_STORES, PerfectHashStore, encoded_db_from_numpy)
 
 N_ITEMS = 40
 _REF = {}
@@ -67,6 +70,50 @@ def test_count_candidates_matches_reference(store, use_kernel, inflight,
         assert 1 <= engine.inflight <= 8  # tuned on the wave's second chunk
     else:
         assert engine.inflight == inflight
+
+
+@pytest.mark.parametrize("path", ["wave", "block"])
+@pytest.mark.parametrize("store,use_kernel,whole", [
+    ("perfect_hash", None, True), ("perfect_hash", None, False),
+    ("perfect_hash", True, False), ("packed_bitmap", None, False),
+    ("bitmap", None, False), ("sorted_prefix", None, False),
+    ("hash_bucket", None, False)])
+def test_count_block_rows_per_call(store, use_kernel, whole, path,
+                                   monkeypatch):
+    """A store that counts whole rows (forced here on the CPU, as the
+    ``perfect_hash`` kernel reports it on the card) gets one ``count_block``
+    call a candidate chunk with all N rows; every other store, and
+    ``perfect_hash`` on its plain path or with its kernel forced on CPU
+    tensors, gets ceil(N / ``block_n``) calls, the ragged tail included.
+    Counts are identical both ways, through the resident wave and through
+    ``count_block`` over an ad-hoc block."""
+    cls = ARRAY_STORES[store]
+    if use_kernel is not None:
+        monkeypatch.setattr(cls, "use_kernel", use_kernel)
+    if whole:
+        monkeypatch.setattr(PerfectHashStore, "counts_whole_rows",
+                            classmethod(lambda c, device: True))
+    rows, orig = [], cls.count_block
+
+    def logged(trans, cands):
+        rows.append(next(iter(trans.values())).shape[0])
+        return orig(trans, cands)
+
+    monkeypatch.setattr(cls, "count_block", staticmethod(logged))
+    jenc = j_encode_db(_db(), n_items=N_ITEMS)
+    enc = encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items)
+    engine = TEngine(store=store, block_n=64, cand_block=128, device="cpu")
+    n = enc.n_transactions
+    per_chunk = [n] if whole else [64] * (n // 64) + [n % 64]
+    assert n > 64 and n % 64  # several blocks and a ragged tail
+    if path == "wave":
+        engine.place(enc)
+    for cand, want in zip(_wave(), _reference("perfect_hash")):
+        rows.clear()
+        got = (engine.count_candidates(cand) if path == "wave"
+               else engine.count_block(enc, cand))
+        np.testing.assert_array_equal(got, want)
+        assert rows == per_chunk * -(-cand.shape[0] // 128)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
