@@ -543,8 +543,8 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
     # The main path's C2 chunks against its first row block.  On CUDA
     # tensors both stores encode for their kernels by default.
     cand, cand_l = first_c2_chunk(enc), ladder_c2(enc)
-    packed = torch.from_numpy(enc.packed[:BLOCK_N]).to(dev)
     bitmap = torch.from_numpy(enc.bitmap[:BLOCK_N]).to(dev)
+    packed = pack_bitmap(bitmap)
     bitmap_bms = torch.from_numpy(enc_bms.bitmap[:BLOCK_N]).to(dev)
     # The gather kernel counts a chunk over every resident row in one call.
     bitmap_all = torch.from_numpy(enc.bitmap).to(dev)
@@ -573,10 +573,9 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
         torch.from_numpy(pad_candidates(c2s, fs)).to(dev), f_pad=fs)
     bcs = [BitmapMXUStore.encode_candidates(x, f_pad=fs) for x in chunks_s]
     serve_rows = (1, SLOT - BLOCK_N, BLOCK_N)
-    packed_s = {n: torch.from_numpy(enc_serve.packed[:n]).to(dev)
-                for n in serve_rows}
     bitmap_s = {n: torch.from_numpy(enc_serve.bitmap[:n]).to(dev)
                 for n in serve_rows}
+    packed_s = {n: pack_bitmap(b) for n, b in bitmap_s.items()}
 
     def packed_case(n, w, c, ks, pads):
         f = w * 32
@@ -589,7 +588,7 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
             for r in rows])
         kv = torch.tensor([len(r) for r in rows], dtype=torch.int32, device=dev)
         kv[c - pads:] = -1
-        return torch.from_numpy(pack_bitmap(bm)).to(dev), cp, kv
+        return pack_bitmap(torch.from_numpy(bm).to(dev)), cp, kv
 
     def gather_ids(f, c, k, pads):
         """(c, k) sorted ids of distinct items in [0, f - 1), the last
@@ -3561,20 +3560,6 @@ def apriori_holds(rec):
     return 0.0, None, n_local * f * b + c_local * k * 4
 
 
-def pack_rows(bits):
-    """(rows, F) {0,1} -> (rows, F/32) int32 words, bit b of word w column
-    32 w + b (``core.stores.pack_bitmap``'s layout), on the card."""
-    import torch
-
-    n, f = bits.shape
-    lanes = bits.view(n, f // 32, 32)
-    words = torch.zeros((n, f // 32), dtype=torch.int64, device=bits.device)
-    for b in range(32):
-        words |= lanes[:, :, b].to(torch.int64) << b
-    return torch.where(words > 0x7FFFFFFF, words - (1 << 32),
-                       words).to(torch.int32)
-
-
 def count_share(sm_rate, int8_rate, seed=13):
     """(b) One device's share of the production count job on the card: a
     seeded (N, F) uint8 bitmap, its packed words and C k-hot candidates;
@@ -3584,6 +3569,7 @@ def count_share(sm_rate, int8_rate, seed=13):
     both kernels against the dry run's plain bf16 count step and its
     ``perfect_hash`` gathers."""
     import torch
+    from repro_torch.core.stores import pack_bitmap
     from repro_torch.core.stores.packed_bitmap import pack_candidates_device
     from repro_torch.kernels.support_count import (
         launches, packed_support_count, reset_launches, support_count)
@@ -3601,7 +3587,7 @@ def count_share(sm_rate, int8_rate, seed=13):
         bits = torch.randint(0, 256, (P13_ROWS, f), dtype=torch.uint8,
                              device=dev, generator=gen) < P13_DENSITY
         bitmap[i:i + P13_ROWS] = bits
-        packed[i:i + P13_ROWS] = pack_rows(bits)
+        packed[i:i + P13_ROWS] = pack_bitmap(bits)
         del bits
     cand = torch.rand((c, f), generator=gen, device=dev).argsort(
         dim=1)[:, :k].sort(dim=1).values.to(torch.int32)

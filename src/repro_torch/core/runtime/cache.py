@@ -16,8 +16,7 @@ digest)``: two runners over the same ingested matrix and frequent-item map
 share an entry regardless of backend, mesh, or construction order, and any
 change to the data or the support threshold (which changes the item map)
 misses.  Entries are immutable by convention — the engine's
-``pad_transactions_to`` copies instead of mutating, and the lazily memoized
-``EncodedDB.packed`` view is idempotent, so sharing is safe.
+``pad_transactions_to`` copies instead of mutating, so sharing is safe.
 """
 
 from __future__ import annotations

@@ -231,10 +231,7 @@ class LevelLadder:
         # _padded/_bitmap hold this rank's rows only.
         self._n_pad, self._width = enc.padded.shape
         self._f_pad = enc.f_pad
-        self._padded = torch.from_numpy(
-            np.ascontiguousarray(local.padded, dtype=np.int32)).to(dev)
-        self._bitmap = torch.from_numpy(
-            np.ascontiguousarray(local.bitmap, dtype=np.uint8)).to(dev)
+        self._padded, self._bitmap = self.engine._rows_to_device(local)
         self._trans = self._make_inputs()
         # ladder id -> miner dense id; trimming re-ranks ids densely, and
         # this (monotone) map translates results back at the yield boundary.

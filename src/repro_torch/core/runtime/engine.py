@@ -11,7 +11,8 @@ The PyTorch counterpart of the JAX package's ``core/runtime/engine.py``:
 there is no ``jit`` (PyTorch runs eagerly) and asynchrony is the device
 stream's own order.
 
-The transaction tensors are placed once and reused across levels; per wave
+The placed rows' padded ids and bitmap go to the device once, the store
+builds its transaction tensors there, and they serve every level; per wave
 only the small (C, k) int32 candidate matrix crosses to the device, and the
 store's ``encode_candidates`` builds its candidate tensors there.
 
@@ -57,7 +58,6 @@ import torch
 
 from repro_torch.core.stores import ARRAY_STORES, EncodedDB, pad_candidates
 from repro_torch.core.stores.base import ITEM_PAD
-from repro_torch.distributed.ctx import fetch_global
 from repro_torch.trace import span
 
 
@@ -213,20 +213,24 @@ class MapReduceEngine:
         per = n // self.n_data_shards
         return self._data_index * per, (self._data_index + 1) * per
 
+    def _rows_to_device(self, enc: EncodedDB) -> Tuple[torch.Tensor, ...]:
+        """``enc``'s (N, L) padded ids and (N, F_pad) bitmap on the engine's
+        device, what the store's ``device_transaction_inputs`` builds from."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                     for a in (enc.padded, enc.bitmap))
+
     def place(self, enc: EncodedDB) -> None:
-        """Pad N to the data shard multiple and copy this rank's row block
-        of the store's transaction tensors to the device; keep them."""
+        """Pad N to the data shard multiple, copy this rank's row block to
+        the device and keep the store's transaction tensors built there."""
         self.abandon()  # handles from a prior DB are void
         shards = self.n_data_shards
         n_padded = -(-enc.n_transactions // shards) * shards
-        with span("repro_torch.engine.place.pack"):
+        with span("repro_torch.engine.place.copy"):
             enc = enc.pad_transactions_to(n_padded)
             local = enc.row_block(*self._row_block(n_padded))
-            trans = self.store.transaction_inputs(local)
-        with span("repro_torch.engine.place.copy"):
-            self._trans_device = {
-                k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in trans.items()}
+            rows = self._rows_to_device(local)
+        with span("repro_torch.engine.place.pack"):
+            self._trans_device = self.store.device_transaction_inputs(*rows)
         self._enc = enc
         self._local_enc = local
 
@@ -356,8 +360,7 @@ class MapReduceEngine:
         """Fetch the oldest outstanding chunk result to the host (blocking)."""
         pending, slot, dev, c, _ = self._queue.popleft()
         with span("repro_torch.engine.wait"):
-            counts = fetch_global(dev)
-            pending._parts[slot] = counts[:c].astype(np.int64)
+            pending._parts[slot] = dev[:c].cpu().numpy().astype(np.int64)
 
     def drain_ready(self) -> int:
         """Fetch every *leading* queue entry whose device result is already
@@ -456,12 +459,12 @@ class MapReduceEngine:
         of the placed DB: the out-of-core chunk count and the serving
         delta primitive.
 
-        The block's store tensors go to the device with the dispatch
-        (nothing is re-placed, so the resident DB is untouched); the
-        candidates go in ``cand_block`` chunks, each encoded on the device
-        and counted by ``_blocked_count`` over the block's rows, and
-        the results flow through the same FIFO as the wave pipeline, with
-        at most ``inflight`` outstanding.
+        The block's rows go to the device with the dispatch and the store
+        builds its tensors there (nothing is re-placed, so the resident DB
+        is untouched); the candidates go in ``cand_block`` chunks, each
+        encoded on the device and counted by ``_blocked_count`` over the
+        block's rows, and the results flow through the same FIFO as the
+        wave pipeline, with at most ``inflight`` outstanding.
         """
         cand = np.ascontiguousarray(np.asarray(cand, dtype=np.int32))
         if cand.size == 0:
@@ -470,8 +473,8 @@ class MapReduceEngine:
             pending = PendingCounts(self, 1)
             pending._parts[0] = np.zeros((cand.shape[0],), np.int64)
             return pending
-        trans = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                 for k, v in self.store.transaction_inputs(enc_block).items()}
+        trans = self.store.device_transaction_inputs(
+            *self._rows_to_device(enc_block))
         starts = range(0, cand.shape[0], self.cand_block)
         pending = PendingCounts(self, len(starts))
         for slot, i in enumerate(starts):
@@ -518,4 +521,4 @@ class MapReduceEngine:
         ids = torch.clamp(p, max=n_items).reshape(-1).to(torch.int64)
         hist = torch.bincount(ids, minlength=n_items + 1)[:n_items]
         hist = self.all_reduce_data(hist.contiguous())
-        return fetch_global(hist).astype(np.int64)
+        return hist.cpu().numpy().astype(np.int64)

@@ -20,8 +20,10 @@ Every store implements ``count_block(trans_block, cands) -> int32[C]`` over
 a block of transaction tensors, and all produce identical counts.  Candidate
 tensors are built on the device by ``encode_candidates(cand, f_pad=...)``
 from the small (C, k) int32 matrix, the only per-wave host-to-device
-transfer.  ``device_transaction_inputs(padded, bitmap)`` rebuilds a store's
-transaction tensors on the device (the level ladder's trims).
+transfer.  ``device_transaction_inputs(padded, bitmap)`` builds a store's
+transaction tensors on the device from an encoding's padded ids and bitmap,
+and nothing else builds them: the placed DB, ad-hoc blocks and the level
+ladder's trims all go through it.
 """
 
 from repro_torch.core.stores.base import (

@@ -1,10 +1,12 @@
 """Shared encoding for the array-layout candidate stores (PyTorch port).
 
 The host-side encoders are NumPy, carried over from the JAX package so the
-port never imports it; the one difference is the packed-word dtype.  PyTorch
-has no usable ``uint32`` on the CPU (no ``arange``, no popcount), so packed
-words travel as **int32 with the identical bit pattern** — the CUDA kernels
-reinterpret them as ``unsigned``.
+port never imports it.  Every store builds its transaction tensors on the
+device from an encoding's padded ids and bitmap
+(``device_transaction_inputs``).  PyTorch has no usable ``uint32`` on the
+CPU (no ``arange``, no popcount), so packed words travel as **int32 with
+the identical bit pattern** — the CUDA kernels reinterpret them as
+``unsigned``.
 """
 
 from __future__ import annotations
@@ -24,16 +26,27 @@ ITEM_PAD = np.int32(2**30)
 WORD_BITS = 32  # items per packed 32-bit word
 
 
-def pack_bitmap(bitmap: np.ndarray) -> np.ndarray:
-    """(N, F_pad) uint8 multi-hot -> (N, F_pad/32) int32, bit b of word w is
-    column ``32*w + b``.  The words are the uint32 packing viewed as int32
-    (bit for bit the same).  F_pad is a multiple of 128, so 32 divides it."""
+def _wrap_uint32(words: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> the int32 carrying the same 32 bits."""
+    return torch.where(words > 0x7FFFFFFF, words - (1 << 32),
+                       words).to(torch.int32)
+
+
+def pack_bitmap(bitmap: torch.Tensor) -> torch.Tensor:
+    """(N, F_pad) uint8 multi-hot -> (N, F_pad/32) int32 on its device, bit
+    b of word w is column ``32*w + b``: lane b of every 32-column group is
+    shifted to bit b in int64 (one (N, W) plane per lane), then wrapped to
+    the int32 carrier (bit for bit the uint32 packing).  F_pad is a
+    multiple of 128, so 32 divides it."""
     n, f = bitmap.shape
     if f % WORD_BITS:
         raise ValueError(f"F_pad={f} must be a multiple of {WORD_BITS}")
-    lanes = bitmap.reshape(n, f // WORD_BITS, WORD_BITS).astype(np.uint32)
-    weights = np.uint32(1) << np.arange(WORD_BITS, dtype=np.uint32)
-    return np.bitwise_or.reduce(lanes * weights, axis=2).view(np.int32)
+    lanes = bitmap.reshape(n, f // WORD_BITS, WORD_BITS)
+    packed = torch.zeros((n, f // WORD_BITS), dtype=torch.int64,
+                         device=bitmap.device)
+    for b in range(WORD_BITS):
+        packed |= lanes[:, :, b].to(torch.int64) << b
+    return _wrap_uint32(packed)
 
 
 @dataclasses.dataclass
@@ -46,15 +59,12 @@ class EncodedDB:
     padded:   (N, L) int32, each row sorted ascending, padded with ITEM_PAD.
     bitmap:   (N, F_pad) uint8 multi-hot; F_pad a multiple of 128 and > F, so
               column F_pad - 1 is guaranteed all-zero (used by candidate pads).
-    packed:   (N, F_pad/32) int32 bit-packed view of ``bitmap`` — built
-              lazily and cached.
     n_items:  F, the number of real (frequent) item columns.
     """
 
     padded: np.ndarray
     bitmap: np.ndarray
     n_items: int
-    _packed: np.ndarray = dataclasses.field(default=None, repr=False, compare=False)
 
     @property
     def n_transactions(self) -> int:
@@ -68,20 +78,11 @@ class EncodedDB:
     def n_words(self) -> int:
         return self.f_pad // WORD_BITS
 
-    @property
-    def packed(self) -> np.ndarray:
-        if self._packed is None:
-            self._packed = pack_bitmap(self.bitmap)
-        return self._packed
-
     def row_block(self, lo: int, hi: int) -> "EncodedDB":
         """Rows ``[lo, hi)`` (a rank's transaction shard), views of the same
-        arrays, the cached packed view included."""
-        out = EncodedDB(padded=self.padded[lo:hi], bitmap=self.bitmap[lo:hi],
-                        n_items=self.n_items)
-        if self._packed is not None:
-            out._packed = self._packed[lo:hi]
-        return out
+        arrays."""
+        return EncodedDB(padded=self.padded[lo:hi], bitmap=self.bitmap[lo:hi],
+                         n_items=self.n_items)
 
     def pad_transactions_to(self, n: int) -> "EncodedDB":
         """Pad N up to ``n`` with empty transactions (match nothing)."""
@@ -90,15 +91,11 @@ class EncodedDB:
         extra = n - self.n_transactions
         pad_rows = np.full((extra, self.padded.shape[1]), ITEM_PAD, np.int32)
         pad_bits = np.zeros((extra, self.f_pad), np.uint8)
-        out = EncodedDB(
+        return EncodedDB(
             padded=np.concatenate([self.padded, pad_rows]),
             bitmap=np.concatenate([self.bitmap, pad_bits]),
             n_items=self.n_items,
         )
-        if self._packed is not None:  # extend the cached packed view
-            pad_words = np.zeros((extra, self.n_words), np.int32)
-            out._packed = np.concatenate([self._packed, pad_words])
-        return out
 
 
 def encoded_db_from_numpy(padded: np.ndarray, bitmap: np.ndarray,

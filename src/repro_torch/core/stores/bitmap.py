@@ -13,9 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.stores.base import (
-    DeltaCountMixin, EncodedDB, KernelSwitchMixin,
-)
+from repro_torch.core.stores.base import DeltaCountMixin, KernelSwitchMixin
 
 
 def candidates_to_khot(cand: np.ndarray, f_pad: int) -> tuple:
@@ -34,15 +32,10 @@ class BitmapMXUStore(KernelSwitchMixin, DeltaCountMixin):
     name = "bitmap"
 
     @staticmethod
-    def transaction_inputs(enc: EncodedDB) -> dict:
-        return {"bitmap": enc.bitmap}
-
-    @staticmethod
     def device_transaction_inputs(padded: torch.Tensor,
                                   bitmap: torch.Tensor) -> dict:
-        """``transaction_inputs`` from the device-resident (N, L) padded ids
-        and (N, F_pad) bitmap: the level ladder rebuilds the store tensors on
-        the device after every trim."""
+        """The store's transaction tensors from the (N, L) padded ids and
+        the (N, F_pad) bitmap, on their device."""
         return {"bitmap": bitmap}
 
     @classmethod
@@ -59,12 +52,6 @@ class BitmapMXUStore(KernelSwitchMixin, DeltaCountMixin):
                        else torch.float32)
         kvec = torch.full((c,), k, dtype=torch.int32, device=cand.device)
         return {"khot": khot, "kvec": kvec}
-
-    @staticmethod
-    def candidate_shard_axes() -> dict:
-        """Tensor name -> axis carrying C, for every tensor
-        ``encode_candidates`` returns."""
-        return {"khot": 0, "kvec": 0}
 
     @classmethod
     def count_block(cls, trans: dict, cands: dict) -> torch.Tensor:

@@ -11,10 +11,9 @@ by bitmap gathers for the probed candidates.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from repro_torch.core.stores.base import DeltaCountMixin, EncodedDB, ITEM_PAD
+from repro_torch.core.stores.base import DeltaCountMixin, ITEM_PAD
 
 
 class HashBucketStore(DeltaCountMixin):
@@ -22,17 +21,11 @@ class HashBucketStore(DeltaCountMixin):
     child_max_size = 20  # paper §5.2
 
     @classmethod
-    def transaction_inputs(cls, enc: EncodedDB) -> dict:
-        padded = enc.padded
-        t_hash = np.where(padded == ITEM_PAD, -1, padded % cls.child_max_size)
-        return {"bitmap": enc.bitmap, "t_hash": t_hash.astype(np.int32)}
-
-    @classmethod
     def device_transaction_inputs(cls, padded: torch.Tensor,
                                   bitmap: torch.Tensor) -> dict:
-        """``transaction_inputs`` from the device-resident (N, L) padded ids
-        and (N, F_pad) bitmap.  A trim re-ranks the item ids, so the routing
-        hashes are recomputed from the remapped rows."""
+        """The store's transaction tensors from the (N, L) padded ids and
+        the (N, F_pad) bitmap, on their device: each row item's routing
+        hash, -1 at the ITEM_PAD tail."""
         t_hash = torch.where(padded == int(ITEM_PAD), -1,
                              padded % cls.child_max_size).to(torch.int32)
         return {"bitmap": bitmap, "t_hash": t_hash}
@@ -41,12 +34,6 @@ class HashBucketStore(DeltaCountMixin):
     def encode_candidates(cls, cand: torch.Tensor, *, f_pad: int) -> dict:
         bucket = (cand[:, 0] % cls.child_max_size).to(torch.int32)
         return {"cand": cand, "cand_bucket": bucket}
-
-    @staticmethod
-    def candidate_shard_axes() -> dict:
-        """Tensor name -> axis carrying C, for every tensor
-        ``encode_candidates`` returns."""
-        return {"cand": 0, "cand_bucket": 0}
 
     @staticmethod
     def count_block(trans: dict, cands: dict) -> torch.Tensor:

@@ -15,14 +15,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.stores.base import (
-    DeltaCountMixin, EncodedDB, KernelSwitchMixin, WORD_BITS,
+    DeltaCountMixin, KernelSwitchMixin, WORD_BITS, _wrap_uint32, pack_bitmap,
 )
-
-
-def _wrap_uint32(words: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> the int32 carrying the same 32 bits."""
-    return torch.where(words > 0x7FFFFFFF, words - (1 << 32),
-                       words).to(torch.int32)
 
 
 def pack_candidates_device(cand: torch.Tensor, n_words: int) -> torch.Tensor:
@@ -45,23 +39,11 @@ class PackedBitmapStore(KernelSwitchMixin, DeltaCountMixin):
     name = "packed_bitmap"
 
     @staticmethod
-    def transaction_inputs(enc: EncodedDB) -> dict:
-        return {"packed": enc.packed}
-
-    @staticmethod
     def device_transaction_inputs(padded: torch.Tensor,
                                   bitmap: torch.Tensor) -> dict:
-        """``transaction_inputs`` from the device-resident (N, L) padded ids
-        and (N, F_pad) bitmap, bit for bit ``base.pack_bitmap``: lane b of
-        every 32-column group is shifted to bit b in int64 (one (N, W)
-        plane per lane), then wrapped to the int32 carrier."""
-        n, f = bitmap.shape
-        lanes = bitmap.reshape(n, f // WORD_BITS, WORD_BITS)
-        packed = torch.zeros((n, f // WORD_BITS), dtype=torch.int64,
-                             device=bitmap.device)
-        for b in range(WORD_BITS):
-            packed |= lanes[:, :, b].to(torch.int64) << b
-        return {"packed": _wrap_uint32(packed)}
+        """The store's transaction tensors from the (N, L) padded ids and
+        the (N, F_pad) bitmap, on their device: the bitmap's packed words."""
+        return {"packed": pack_bitmap(bitmap)}
 
     @classmethod
     def encode_candidates(cls, cand: torch.Tensor, *, f_pad: int) -> dict:
@@ -75,13 +57,6 @@ class PackedBitmapStore(KernelSwitchMixin, DeltaCountMixin):
         kvec = torch.full((c,), cand.shape[1], dtype=torch.int32,
                           device=cand.device)
         return {**body, "kvec": kvec}
-
-    @classmethod
-    def candidate_shard_axes(cls, device="cpu") -> dict:
-        """Tensor name -> axis carrying C, for every tensor
-        ``encode_candidates`` returns on ``device``."""
-        body = {"packed": 0} if cls.kernel_on(device) else {"packedT": 1}
-        return {**body, "kvec": 0}
 
     @classmethod
     def count_block(cls, trans: dict, cands: dict) -> torch.Tensor:

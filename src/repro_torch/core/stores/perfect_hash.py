@@ -21,9 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.stores.base import (
-    DeltaCountMixin, EncodedDB, KernelSwitchMixin,
-)
+from repro_torch.core.stores.base import DeltaCountMixin, KernelSwitchMixin
 from repro_torch.kernels.support_count.ref import gather_and_count_ref
 
 
@@ -31,26 +29,15 @@ class PerfectHashStore(KernelSwitchMixin, DeltaCountMixin):
     name = "perfect_hash"
 
     @staticmethod
-    def transaction_inputs(enc: EncodedDB) -> dict:
-        return {"bitmap": enc.bitmap}
-
-    @staticmethod
     def device_transaction_inputs(padded: torch.Tensor,
                                   bitmap: torch.Tensor) -> dict:
-        """``transaction_inputs`` from the device-resident (N, L) padded ids
-        and (N, F_pad) bitmap: the level ladder rebuilds the store tensors on
-        the device after every trim."""
+        """The store's transaction tensors from the (N, L) padded ids and
+        the (N, F_pad) bitmap, on their device."""
         return {"bitmap": bitmap}
 
     @staticmethod
     def encode_candidates(cand: torch.Tensor, *, f_pad: int) -> dict:
         return {"cand": cand}
-
-    @staticmethod
-    def candidate_shard_axes() -> dict:
-        """Tensor name -> axis carrying C, for every tensor
-        ``encode_candidates`` returns."""
-        return {"cand": 0}
 
     @classmethod
     def counts_whole_rows(cls, device) -> bool:

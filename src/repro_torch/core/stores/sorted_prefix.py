@@ -11,33 +11,22 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.stores.base import DeltaCountMixin, EncodedDB
+from repro_torch.core.stores.base import DeltaCountMixin
 
 
 class SortedPrefixStore(DeltaCountMixin):
     name = "sorted_prefix"
 
     @staticmethod
-    def transaction_inputs(enc: EncodedDB) -> dict:
-        return {"padded": enc.padded}
-
-    @staticmethod
     def device_transaction_inputs(padded: torch.Tensor,
                                   bitmap: torch.Tensor) -> dict:
-        """``transaction_inputs`` from the device-resident (N, L) padded ids
-        and (N, F_pad) bitmap: the level ladder rebuilds the store tensors on
-        the device after every trim."""
+        """The store's transaction tensors from the (N, L) padded ids and
+        the (N, F_pad) bitmap, on their device."""
         return {"padded": padded}
 
     @staticmethod
     def encode_candidates(cand: torch.Tensor, *, f_pad: int) -> dict:
         return {"cand": cand}
-
-    @staticmethod
-    def candidate_shard_axes() -> dict:
-        """Tensor name -> axis carrying C, for every tensor
-        ``encode_candidates`` returns."""
-        return {"cand": 0}
 
     @staticmethod
     def count_block(trans: dict, cands: dict) -> torch.Tensor:

@@ -99,7 +99,7 @@ def _packed_args(dev, n, w, c, ks, pads, seed):
     kvec = torch.tensor([len(r) for r in rows], dtype=torch.int32)
     if pads:
         kvec[-pads:] = -1
-    return [torch.from_numpy(pack_bitmap(bitmap)).to(dev), cp.to(dev), kvec.to(dev)]
+    return [pack_bitmap(torch.from_numpy(bitmap).to(dev)), cp.to(dev), kvec.to(dev)]
 
 
 def _bitmap_args(dev, n, f, c, ks, pads, seed, dtype=torch.int8):

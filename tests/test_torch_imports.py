@@ -49,6 +49,37 @@ def test_port_imports_neither_jax_nor_reference():
             "train"} <= set(subs.split(","))
 
 
+_COUNT_PLAIN = """
+import sys
+import numpy as np
+from repro_torch.core.itemsets import apriori_gen_matrix
+from repro_torch.core.runtime.job import CountJob
+from repro_torch.core.runtime.runners import TorchRunner
+rng = np.random.default_rng(0)
+db = [sorted(set(rng.integers(0, 12, size=5).tolist())) for _ in range(40)]
+for store in ("perfect_hash", "packed_bitmap", "bitmap"):
+    runner = TorchRunner(store=store, device="cpu")
+    runner.ingest(db)
+    hist, _ = runner.job1()
+    item_map = np.flatnonzero(hist >= 2)
+    runner.place(item_map)
+    singles = np.arange(len(item_map), dtype=np.int32)[:, None]
+    counts, _ = runner.count(CountJob(2, apriori_gen_matrix(singles), 2))
+    assert counts.sum() > 0
+print("torch.distributed.tensor" in sys.modules)
+"""
+
+
+def test_count_path_never_loads_dtensor():
+    """ingest, job1, place and count fetch plain count vectors: a fresh
+    process that runs them never imports ``torch.distributed.tensor``."""
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", _COUNT_PLAIN], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
+
+
 def test_chip_smoke_imports_neither_jax_nor_reference():
     tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
     mods = set()
@@ -127,6 +158,14 @@ _UNPORTED = {
 _IMPORTED_ONLY = {
     ("repro_torch.core.runtime.device_loop", "MapReduceEngine"),
     ("repro_torch.core.runtime.engine", "ITEM_PAD"),
+    # The reference's engine fetches through it; the port's engine copies
+    # its plain count vectors to the host itself.
+    ("repro_torch.core.runtime.engine", "fetch_global"),
+    # The reference's stores take an EncodedDB in their host
+    # ``transaction_inputs``; the port's build only on the device.
+    *{(f"repro_torch.core.stores.{m}", "EncodedDB") for m in (
+        "bitmap", "hash_bucket", "packed_bitmap", "perfect_hash",
+        "sorted_prefix")},
     # The reference stacks specs for its scanned super-blocks; the port
     # holds one tree per layer.
     ("repro_torch.models.transformer", "ParamSpec"),

@@ -53,7 +53,7 @@ from repro.core.stores import pad_candidates as j_pad_candidates  # noqa: E402
 from repro.core.stores.base import tracked_keep_mask as j_tracked_keep_mask  # noqa: E402
 from repro.launch import serve as j_cli  # noqa: E402
 from repro.serve import MiningService as JService  # noqa: E402
-from test_torch_stores import cpu_mesh, one_torch_thread  # noqa: E402,F401
+from test_torch_stores import _trans, cpu_mesh, one_torch_thread  # noqa: E402,F401
 
 from repro_torch.core.stores import (  # noqa: E402
     ARRAY_STORES, encoded_db_from_numpy, pad_candidates, tracked_keep_mask)
@@ -355,8 +355,7 @@ def test_count_and_uncount_delta_match_reference(store, k):
     for block in (db[:1], db):
         jenc = j_encode_db(block, n_items=n_items)
         enc = encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items)
-        trans = {n: torch.from_numpy(np.ascontiguousarray(v))
-                 for n, v in cls.transaction_inputs(enc).items()}
+        trans = _trans(cls, enc)
         cand_p = pad_candidates(cand, enc.f_pad)
         cands = cls.encode_candidates(torch.from_numpy(cand_p),
                                       f_pad=enc.f_pad)

@@ -15,6 +15,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core.itemsets import level_to_matrix  # noqa: E402
 from repro.core.runtime.engine import MapReduceEngine as JEngine  # noqa: E402
 from repro.core.stores import ARRAY_STORES as J_STORES  # noqa: E402
+from repro.core.stores import EncodedDB as J_EncodedDB  # noqa: E402
 from repro.core.stores import encode_db as j_encode_db  # noqa: E402
 from repro.core.stores import pack_bitmap as j_pack_bitmap  # noqa: E402
 from repro.core.stores.bitmap import BitmapMXUStore as JBitmap  # noqa: E402
@@ -78,6 +79,13 @@ def _switch(monkeypatch, store, use_kernel):
     return cls
 
 
+def _trans(cls, enc):
+    """A store's transaction tensors, built from the encoding's CPU
+    tensors."""
+    return cls.device_transaction_inputs(torch.from_numpy(enc.padded),
+                                         torch.from_numpy(enc.bitmap))
+
+
 def _db(case):
     kind, i = case
     return _random_db(i) if kind == "seed" else EDGE_DBS[i]
@@ -112,8 +120,7 @@ def test_store_counts_match_reference(store, use_kernel, case, monkeypatch):
         np.testing.assert_array_equal(engine.count_candidates(cand), counts,
                                       err_msg=f"{store} kernel={use_kernel} k={k}")
         if enc.n_transactions:
-            trans = {n: torch.from_numpy(v)
-                     for n, v in cls.transaction_inputs(enc).items()}
+            trans = _trans(cls, enc)
             cands = cls.encode_candidates(
                 torch.from_numpy(pad_candidates(cand, enc.f_pad)),
                 f_pad=enc.f_pad)
@@ -125,29 +132,27 @@ def test_store_counts_match_reference(store, use_kernel, case, monkeypatch):
 @pytest.mark.parametrize("store", list(ARRAY_STORES))
 @pytest.mark.parametrize("case", CASES)
 def test_device_transaction_inputs_match(store, case):
-    """Each store's device-built transaction tensors equal its host ones
-    and the JAX store's device-built ones (as numpy), bit for bit: the
-    packed words' sign bit, the ITEM_PAD tail and the -1 pad hashes too."""
+    """Each store's device-built transaction tensors equal the JAX store's
+    host ones and its device-built ones (as numpy), bit for bit: the packed
+    words' sign bit, the ITEM_PAD tail and the -1 pad hashes too."""
     cls = ARRAY_STORES[store]
     n_items, db = _db(case)
     jenc = j_encode_db(db, n_items=n_items)
-    enc = encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items)
     bitmap = jenc.bitmap.copy()
     if bitmap.shape[0]:
         bitmap[:, 31] = 1  # bit 31 of word 0: the int32 sign bit
-    padded_t = torch.from_numpy(enc.padded)
-    got = cls.device_transaction_inputs(padded_t, torch.from_numpy(bitmap))
-    host = cls.transaction_inputs(encoded_db_from_numpy(
-        enc.padded, bitmap, enc.n_items))
-    want = J_STORES[store].device_transaction_inputs(jnp.asarray(enc.padded),
+    got = cls.device_transaction_inputs(torch.from_numpy(jenc.padded),
+                                        torch.from_numpy(bitmap))
+    host = J_STORES[store].transaction_inputs(
+        J_EncodedDB(padded=jenc.padded, bitmap=bitmap, n_items=n_items))
+    want = J_STORES[store].device_transaction_inputs(jnp.asarray(jenc.padded),
                                                      jnp.asarray(bitmap))
     assert set(got) == set(host) == set(want)
     for name, t in got.items():
-        assert t.dtype == torch.from_numpy(np.asarray(host[name])).dtype
-        np.testing.assert_array_equal(t.numpy(), host[name])
-        w = np.asarray(want[name])
-        np.testing.assert_array_equal(
-            t.numpy(), w.view(np.int32) if w.dtype == np.uint32 else w)
+        for w in (np.asarray(host[name]), np.asarray(want[name])):
+            w = w.view(np.int32) if w.dtype == np.uint32 else w
+            assert t.dtype == torch.from_numpy(w).dtype
+            np.testing.assert_array_equal(t.numpy(), w)
 
 
 @pytest.mark.parametrize("store", ["perfect_hash", "bitmap", "packed_bitmap"])
@@ -168,7 +173,7 @@ def test_default_switch_takes_plain_path_on_cpu(store, monkeypatch):
     n_items, db = _random_db(0)
     jenc = j_encode_db(db, n_items=n_items)
     enc = encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items)
-    trans = {n: torch.from_numpy(v) for n, v in cls.transaction_inputs(enc).items()}
+    trans = _trans(cls, enc)
     cand = pad_candidates(level_to_matrix(_candidates(db, 2)), enc.f_pad)
     cands = cls.encode_candidates(torch.from_numpy(cand), f_pad=enc.f_pad)
     if store == "bitmap":
@@ -199,7 +204,7 @@ def test_switch_picks_the_counting_path(store, use_kernel, monkeypatch):
     n_items, db = _random_db(2)
     jenc = j_encode_db(db, n_items=n_items)
     enc = encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items)
-    trans = {n: torch.from_numpy(v) for n, v in cls.transaction_inputs(enc).items()}
+    trans = _trans(cls, enc)
     cand = pad_candidates(level_to_matrix(_candidates(db, 2)), enc.f_pad)
     cands = cls.encode_candidates(torch.from_numpy(cand), f_pad=enc.f_pad)
     got = cls.count_block(trans, cands)
@@ -214,9 +219,10 @@ def test_pack_bitmap_bit_identical(seed):
     n, f = int(rng.integers(1, 40)), 128 * int(rng.integers(1, 4))
     bitmap = (rng.random((n, f)) < 0.5).astype(np.uint8)
     bitmap[:, f - 1] = 1  # the sign bit of the last word
-    got = pack_bitmap(bitmap)
-    assert got.dtype == np.int32
-    np.testing.assert_array_equal(got, j_pack_bitmap(bitmap).view(np.int32))
+    got = pack_bitmap(torch.from_numpy(bitmap))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  j_pack_bitmap(bitmap).view(np.int32))
 
 
 @pytest.mark.parametrize("k", [1, 2, 3, 5])
@@ -237,8 +243,7 @@ def test_pack_candidates_bit_identical(k):
 @pytest.mark.parametrize("use_kernel", [None, False, True])
 def test_encode_candidates_layouts(use_kernel, monkeypatch):
     """Each store emits the layout its active path reads (None on CPU
-    tensors: the plain one), and every tensor it returns is named by
-    ``candidate_shard_axes`` with its C axis."""
+    tensors: the plain one)."""
     monkeypatch.setattr(PackedBitmapStore, "use_kernel", use_kernel)
     monkeypatch.setattr(BitmapMXUStore, "use_kernel", use_kernel)
     rng = np.random.default_rng(9)
@@ -257,12 +262,6 @@ def test_encode_candidates_layouts(use_kernel, monkeypatch):
     np.testing.assert_array_equal(host_kvec, want_kvec)
     pk = PackedBitmapStore.encode_candidates(torch.from_numpy(cand), f_pad=f_pad)
     assert set(pk) == {"packed" if kernel else "packedT", "kvec"}
-    for cls in ARRAY_STORES.values():
-        out = cls.encode_candidates(torch.from_numpy(cand), f_pad=f_pad)
-        axes = cls.candidate_shard_axes()
-        assert set(out) == set(axes)
-        for name, axis in axes.items():
-            assert out[name].shape[axis] == cand.shape[0]
 
 
 @pytest.mark.parametrize("store,use_kernel", CONFIGS)
@@ -271,7 +270,7 @@ def test_apply_delta_is_signed_count_block(store, use_kernel, monkeypatch):
     n_items, db = _random_db(1)
     jenc = j_encode_db(db, n_items=n_items)
     enc = encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items)
-    trans = {n: torch.from_numpy(v) for n, v in cls.transaction_inputs(enc).items()}
+    trans = _trans(cls, enc)
     cand = pad_candidates(level_to_matrix(_candidates(db, 2)), enc.f_pad)
     cands = cls.encode_candidates(torch.from_numpy(cand), f_pad=enc.f_pad)
     base = torch.arange(cand.shape[0], dtype=torch.int64)
@@ -285,10 +284,8 @@ def test_pad_transactions_to_matches_reference():
     n_items, db = _random_db(2)
     jenc = j_encode_db(db, n_items=n_items)
     enc = encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items)
-    enc.packed  # the cached packed view is extended too
     n = enc.n_transactions + 5
     got, want = enc.pad_transactions_to(n), jenc.pad_transactions_to(n)
     np.testing.assert_array_equal(got.padded, want.padded)
     np.testing.assert_array_equal(got.bitmap, want.bitmap)
-    np.testing.assert_array_equal(got.packed, want.packed.view(np.int32))
     assert enc.pad_transactions_to(enc.n_transactions) is enc

@@ -19,7 +19,7 @@ from repro_torch.core.runtime.runners import TorchRunner  # noqa: E402
 
 SETUP = ("repro_torch.ingest.rows", "repro_torch.ingest.fill",
          "repro_torch.runner.job1", "repro_torch.runner.place.encode",
-         "repro_torch.engine.place.pack", "repro_torch.engine.place.copy")
+         "repro_torch.engine.place.copy", "repro_torch.engine.place.pack")
 JOB = ("repro_torch.engine.encode", "repro_torch.engine.launch",
        "repro_torch.engine.wait")
 STORES = ("perfect_hash", "packed_bitmap", "bitmap")
