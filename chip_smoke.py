@@ -53,7 +53,9 @@ result line) when it fails:
    chunks of every counting wave on the host loop; row blocks of every
    level on the ladder, which counts a level in one pass; ``perfect_hash``'s
    kernel takes all of a chunk's rows in one call, so its row blocks count
-   one: ``row_calls``), each kernel must
+   one: ``row_calls``; its pack launches once a build of the store's
+   tensors, never a count: ``BuildLog``, in every phase that checks
+   launches), each kernel must
    launch on every path, and no bitmap count may take the wrapper's pad
    copy;
 5. out-of-core mining: the same two workloads written to ``.dat`` files in a
@@ -255,6 +257,7 @@ SLOT = 3125  # phase 6's T10I4D100K slot: 32 slots hold the 100,000 baskets
 CAND_UNIT = 8  # the level ladder's candidate pad quantum
 KERNEL_OF = {"packed_bitmap": "packed_support_count", "bitmap": "support_count",
              "perfect_hash": "gather_and_count"}
+PACK = "gather_and_count_pack"  # kernel 3's pack: once a build, at place
 STORES = ["packed_bitmap", "bitmap", "perfect_hash", "sorted_prefix",
           "hash_bucket"]
 
@@ -738,19 +741,52 @@ def kernel_phase(enc, enc_bms, enc_serve, rng, sm_rate, int8_rate):
     return rows
 
 
-class WaveLog:
+class BuildLog:
+    """Counts, while active, the builds of the ``perfect_hash`` store's
+    tensors that pack its rows (a CUDA bitmap with the kernel on): each
+    launches kernel 3's pack (``PACK``) once, and no count does."""
+
+    def __enter__(self):
+        from repro_torch.core.stores import PerfectHashStore
+
+        self.packs = 0
+        self._build = PerfectHashStore.__dict__["device_transaction_inputs"]
+        build = PerfectHashStore.device_transaction_inputs
+
+        def logged(padded, bitmap):
+            self.packs += bool(bitmap.is_cuda
+                               and PerfectHashStore.kernel_on(bitmap.device))
+            return build(padded, bitmap)
+
+        PerfectHashStore.device_transaction_inputs = staticmethod(logged)
+        return self
+
+    def want(self, got, kernel, expected):
+        """The launches ``got`` should read: ``expected`` of ``kernel``, one
+        pack a logged build, and none of any other kernel."""
+        return {k: (expected if k == kernel else self.packs if k == PACK
+                    else 0) for k in got}
+
+    def __exit__(self, *exc):
+        from repro_torch.core.stores import PerfectHashStore
+
+        PerfectHashStore.device_transaction_inputs = self._build
+
+
+class WaveLog(BuildLog):
     """Records the candidate count of every counting wave asked for while it
     is active (and, in ``stores``, the store that counted it), so the
     expected launches of the host-loop paths follow from the waves (SPC:
     one per level; FPC/DPC: several per job).  A resident wave is one
     ``count_candidates_async`` call; an out-of-core wave is one chunked job
     (``TorchRunner._count_chunked_async``), logged once however many
-    transaction chunks it streams."""
+    transaction chunks it streams.  It counts packs as ``BuildLog``."""
 
     def __enter__(self):
         from repro_torch.core.runtime.engine import MapReduceEngine
         from repro_torch.core.runtime.runners import TorchRunner
 
+        super().__enter__()
         self.sizes, self.stores = [], []
         self._saved = []
         for cls, attr, cand_of in (
@@ -777,6 +813,7 @@ class WaveLog:
     def __exit__(self, *exc):
         for cls, attr, orig in self._saved:
             setattr(cls, attr, orig)
+        super().__exit__(*exc)
 
 
 def mine(db, min_support, store, use_kernel=None, **options):
@@ -854,8 +891,7 @@ def main_path(workloads):
                     blocks = row_calls(store, res.n_transactions)
                     expected = blocks * sum(math.ceil(c / CAND_BLOCK)
                                             for c in waves.sizes)
-                want = {k: (expected if k == KERNEL_OF.get(store) else 0)
-                        for k in got}
+                want = waves.want(got, KERNEL_OF.get(store), expected)
                 print(f"mine {name} min_support={support} path={path} "
                       f"store={store}: {len(res.itemsets)} itemsets, wall "
                       f"{wall:.3f} s, launches {got} (expected {want})")
@@ -959,8 +995,7 @@ def out_of_core(workloads, bases):
                                          "out of core")
                 expected = (sum(math.ceil(c / CAND_BLOCK) for c in waves.sizes)
                             * sum(row_calls(store, r) for r in rows))
-                want = {k: (expected if k == KERNEL_OF.get(store) else 0)
-                        for k in got}
+                want = waves.want(got, KERNEL_OF.get(store), expected)
                 p1 = res.levels[0]
                 print(f"ooc {name} min_support={support} chunk="
                       f"{reader.chunk_transactions} ({reader.n_chunks} chunks, "
@@ -1005,14 +1040,16 @@ def out_of_core(workloads, bases):
     return mines, by_path, host
 
 
-class ServeLog:
+class ServeLog(BuildLog):
     """While active (and not ``paused``), logs every counting dispatch a
     service makes, so its expected launches follow from what it dispatched:
     each delta job (``TorchRunner.count_block_async``: block rows x
     candidates), each host-loop wave over the placed window
     (``MapReduceEngine.count_candidates_async``: placed rows x candidates)
-    and each ladder level (``LevelLadder.run``: the level's ``n_pad``).  It
-    also sums the host seconds of the serving layer's phases."""
+    and each ladder level (``LevelLadder.run``: the level's ``n_pad``); it
+    counts packs as ``BuildLog`` (paused or not: the paused recounts run
+    with the kernel off and pack nothing).  It also sums the host seconds
+    of the serving layer's phases."""
 
     TIMED = [("runner", "encode_block"), ("runner", "count_block_async"),
              ("service", "_drain_deltas"), ("service", "_serve_from_tracked"),
@@ -1025,6 +1062,7 @@ class ServeLog:
         from repro_torch.core.runtime.runners import TorchRunner
         from repro_torch.serve.engine import MiningService
 
+        super().__enter__()
         self.deltas, self.waves, self.levels = [], [], []
         self.host = {name: 0.0 for _, name in self.TIMED}
         self.paused = False
@@ -1091,6 +1129,7 @@ class ServeLog:
     def __exit__(self, *exc):
         for cls, name, orig in reversed(self._saved):
             setattr(cls, name, orig)
+        super().__exit__(*exc)
 
 
 def window_digest(window):
@@ -1255,7 +1294,7 @@ def serve_run(name, batches, warm, cfg, store, program, refs, log_launches,
                              f"{[st['reason'] for st in steps]})")
     got = dict(launches)
     expected = log.expected(store)
-    want = {k: (expected if k == kernel else 0) for k in got}
+    want = log.want(got, kernel, expected)
     if got != want or len(log.deltas) != stats["delta_jobs"]:
         raise AssertionError(f"{name} {store}: launches {got} != {want} or "
                              f"{len(log.deltas)} logged delta jobs != "
@@ -1438,7 +1477,7 @@ def parity_cell(name, db, support, factories, base, stores):
         cell = run_parity_cell(db, support, factories)
         wall = time.perf_counter() - t0
         got = dict(launches)
-    want = {k: 0 for k in got}
+    want = waves.want(got, None, 0)
     for store in stores:
         if store in KERNEL_OF:
             want[KERNEL_OF[store]] = waves.expected(store, len(db))
@@ -1557,7 +1596,7 @@ def resume_program(name, db, base, store, device_loop, k_loss):
                 raise AssertionError(f"resume waves {waves.sizes} != the "
                                      "levels from the loss on")
             expected = waves.expected(store, len(db))
-        want = {k: (expected if k == kernel else 0) for k in got}
+        want = waves.want(got, kernel, expected)
         if job1 or got != want or not expected or res.itemsets != base["itemsets"]:
             raise AssertionError(f"{name} {store} resume: job1 ran {len(job1)}"
                                  f" times, launches {got} != {want}, or the "
@@ -1805,8 +1844,7 @@ def sharded_mine(db, support, store, shape, ladder=False, runner=None,
                       else eng._local_enc.n_transactions)
             * math.ceil(c / CAND_BLOCK)
             for i, c in enumerate(waves.sizes))
-    kernel = KERNEL_OF.get(store)
-    want = {k: (expected if k == kernel else 0) for k in got}
+    want = waves.want(got, KERNEL_OF.get(store), expected)
     if got != want:
         raise AssertionError(f"sharded {store} {shape} ladder={ladder}: "
                              f"launches {got} != {want}")
@@ -2370,7 +2408,7 @@ def token_miner_phase(support=0.01, steps=4, batch=256, seq_len=4096):
                                  f"!= JobProfile candidates {sizes}")
         blocks = row_calls(store, res.n_transactions)
         expected = blocks * sum(math.ceil(c / CAND_BLOCK) for c in sizes)
-        want = {k: (expected if k == KERNEL_OF.get(store) else 0) for k in got}
+        want = waves.want(got, KERNEL_OF.get(store), expected)
         n_items = res.levels[0].n_frequent
         print(f"token miner {store}: N={res.n_transactions} F={n_items} "
               f"F_pad={(n_items // 128 + 1) * 128} min_count={res.min_count} "

@@ -10,7 +10,9 @@ program's runner: its wall seconds, its ``JobProfile``, whether a
 profiler recorded, the seconds and calls that each span of
 ``repro_torch.trace`` gained in it (none where the program has no such
 module), and the launches each hand-written kernel gained in it
-(``repro_torch.kernels.support_count.launches``).  Prints one JSON
+(``repro_torch.kernels.support_count.launches``, every counter, zeros
+included: ``gather_and_count_pack`` reads 0 a job where the store packed
+its rows at place).  Prints one JSON
 object, and writes it to ``--out``: the harness's result line, every job,
 the means over the window's jobs (with ``--trace 1`` the untraced jobs and
 the traced ones apart, and the traced window's longest idle gaps with the
@@ -66,8 +68,7 @@ def _watch(runner_cls, jobs):
                      "seconds": prof.seconds,
                      "encode_seconds": prof.encode_seconds, "spans": spans,
                      "launches": {n: launches[n] - launched.get(n, 0)
-                                  for n in launches
-                                  if launches[n] != launched.get(n, 0)}})
+                                  for n in launches}})
         return counts, prof
 
     runner_cls.count = watched
@@ -83,6 +84,8 @@ def _means(jobs):
                         for j in jobs) / len(jobs)
         out[name + ".calls"] = sum(j["spans"].get(name, [0.0, 0])[1]
                                    for j in jobs) / len(jobs)
+    out["launches"] = {name: sum(j["launches"].get(name, 0) for j in jobs)
+                       / len(jobs) for name in jobs[0]["launches"]}
     covered = sum(out[name] for name in JOB_SPANS)
     out["spans_over_seconds"] = covered / out["seconds"]
     out["jobs"] = len(jobs)

@@ -1,7 +1,9 @@
 """Times of the gather-AND-popcount kernel (``gather_and_count``, the
 ``perfect_hash`` store's count on the card) at a 2,048-row block and at
 the main path's chunk shape, beside its byte bound and the plain gathers
-it replaced, for one checkout or, in turns, for two on one card.
+it replaced, for one checkout or, in turns, for two on one card.  Over the
+chunk it also times the count alone on words packed once, as the store
+keeps them resident, and the pack alone.
 
     python scripts/time_gather_and_count.py [--root DIR] [--out F]
     python scripts/time_gather_and_count.py --roots OLD NEW [--out F]
@@ -136,13 +138,18 @@ def host_steps(t) -> dict:
 
 def chunk_shape(gen, l2_rate) -> dict:
     """For k 2 and 3, one call over ``N_CHUNK`` rows against the engine's
-    earlier loop over its ``N``-row blocks, both on the same operands."""
+    earlier loop over its ``N``-row blocks, both on the same operands, and,
+    where the checkout has them, the count alone on words packed once (the
+    store's resident words) beside the pack alone."""
     import torch
+    from repro_torch.kernels import support_count as sc
     from repro_torch.kernels.support_count import (
         gather_and_count, gather_and_count_ref)
 
     bitmap = (torch.rand((N_CHUNK, F), generator=gen, device="cuda")
               < 0.5).to(torch.uint8)
+    split = hasattr(sc, "gather_and_count_bits")
+    bits = sc.gather_and_count_pack(bitmap) if split else None
     out = {}
     for k in (2, 3):
         cand = torch.randint(0, F - 1, (C, k), generator=gen, device="cuda",
@@ -173,6 +180,19 @@ def chunk_shape(gen, l2_rate) -> dict:
             "hbm_bytes": hbm, "l2_bytes": l2,
             "floor_ms": hbm / HBM_BYTES_PER_S * 1e3,
             "l2_at_copy_rate_ms": l2 / l2_rate * 1e3}
+        if split:
+            def count_only():
+                return sc.gather_and_count_bits(bits, N_CHUNK, cand)
+
+            def pack_only():
+                return sc.gather_and_count_pack(bitmap)
+
+            out[k].update({
+                "count_equal": bool(torch.equal(count_only(), got)),
+                "count_only_ms": events_ms(count_only, 20),
+                "count_only_device_ms": device_ms(count_only, 10),
+                "host_count_us": host_us(count_only, 50),
+                "pack_only_ms": events_ms(pack_only, 20)})
         torch.cuda.synchronize()
         del got, blocks
     return out
@@ -245,7 +265,8 @@ def main() -> int:
         with open(args.out, "a") as f:
             f.write(line + "\n")
     shapes = [*rec["k"].values(), *rec["chunk"].values()]
-    return 0 if all(v["equal"] for v in shapes) else 1
+    return 0 if all(v["equal"] and v.get("count_equal", True)
+                    for v in shapes) else 1
 
 
 if __name__ == "__main__":

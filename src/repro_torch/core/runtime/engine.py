@@ -238,11 +238,12 @@ class MapReduceEngine:
         """Mapper body.  Where the store's count keeps no (Nb, C)
         intermediate on these tensors (``counts_whole_rows``, the
         ``perfect_hash`` kernel on the card), one call counts every row;
-        otherwise a loop over Nb-row blocks bounds peak (Nb, C) memory, a
-        ragged tail block counted on its own.  One span covers the whole
-        loop: a span a block would put thousands of profiler ranges in a
-        traced job."""
-        first = next(iter(trans.values()))
+        otherwise a loop over Nb-row blocks of the store's ``row_inputs``
+        bounds peak (Nb, C) memory, a ragged tail block counted on its own.
+        One span covers the whole loop: a span a block would put thousands
+        of profiler ranges in a traced job."""
+        rows = self.store.row_inputs(trans)
+        first = next(iter(rows.values()))
         if self.store.counts_whole_rows(first.device):
             with span("repro_torch.engine.launch"):
                 return self.store.count_block(trans, cands)
@@ -254,12 +255,12 @@ class MapReduceEngine:
         with span("repro_torch.engine.launch"):
             for b in range(n_blocks):
                 block = {k: v[b * block_n:(b + 1) * block_n]
-                         for k, v in trans.items()}
+                         for k, v in rows.items()}
                 part = self.store.count_block(block, cands)
                 partial = part if partial is None else partial + part
             if usable < n:  # ragged tail block
                 partial = partial + self.store.count_block(
-                    {k: v[usable:] for k, v in trans.items()}, cands)
+                    {k: v[usable:] for k, v in rows.items()}, cands)
         return partial
 
     # -- collectives -----------------------------------------------------------

@@ -213,6 +213,13 @@ class DeltaCountMixin:
         blocks."""
         return False
 
+    @staticmethod
+    def row_inputs(trans: dict) -> dict:
+        """The tensors of ``trans`` that hold one row a transaction, which
+        the engine slices into ``block_n``-row blocks: all of them, unless
+        a store keeps a tensor of another layout beside its rows."""
+        return trans
+
     @classmethod
     def apply_delta(cls, counts: torch.Tensor, trans_block: dict,
                     cands: dict, sign: int) -> torch.Tensor:

@@ -3,6 +3,9 @@ PyTorch versions (``ref.py``)."""
 
 from repro_torch.kernels.support_count.ops import (
     gather_and_count,
+    gather_and_count_bits,
+    gather_and_count_pack,
+    gather_and_count_words,
     launches,
     packed_support_count,
     packed_variant,
@@ -28,5 +31,8 @@ __all__ = [
     "packed_support_count_ref",
     "packed_variant",
     "gather_and_count",
+    "gather_and_count_bits",
+    "gather_and_count_pack",
+    "gather_and_count_words",
     "gather_and_count_ref",
 ]

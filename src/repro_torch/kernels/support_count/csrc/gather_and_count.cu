@@ -20,19 +20,21 @@
 // its 50 MB.  So the kernel is bound by bytes: the rows from device memory
 // and the column words from L2.
 //
-// What the design does about it.  Two kernels on the caller's stream from
-// one C entry, one call over any number of rows (the engine hands it all of
-// a chunk's rows at once):
-// - Pack: the rows' columns become bits once, an (F, 4 ceil(Nb/128)) uint32
-//   scratch that the wrapper allocates, word w of column f holding rows
+// What the design does about it.  Two C entries, each one kernel on the
+// caller's stream, over any number of rows (the engine hands the count all
+// of a chunk's rows at once):
+// - Pack (gather_and_count_pack_launch): the rows' columns become bits, an
+//   (F, 4 ceil(Nb/128)) uint32 array, word w of column f holding rows
 //   32 w .. 32 w + 31, each column a whole number of 16-byte vectors.  A
 //   thread owns one column and one word: it reads its column's byte in 32
 //   consecutive rows (a warp reads 32 neighbouring bytes of a row, one
 //   32-byte sector, coalesced) and writes one word.  Rows at or past Nb
-//   give zero bits, so no count needs a mask.
-// - Count: the columns are cut into row tiles, each sized from F so that
-//   one tile of every column (F x tile x 16 B) takes about 16 MB of L2, and
-//   the grid is (candidate blocks x row tiles), candidate blocks fastest:
+//   give zero bits, so no count needs a mask.  The rows do not change
+//   between counts, so the store packs them once, when it builds its
+//   tensors, and keeps the words resident: a count call reads only them.
+// - Count (gather_and_count_count_launch): the columns are cut into row
+//   tiles, each sized from F so that one tile of every column (F x tile x
+//   16 B) takes about 16 MB of L2, and the grid is (candidate blocks x row tiles), candidate blocks fastest:
 //   the blocks resident at once share one tile, which stays in L2 while
 //   every candidate reads it.  A group of G lanes (G the next power of two
 //   >= the tile's vectors, at most 32) owns one candidate in one tile.  Its
@@ -46,7 +48,7 @@
 //   in a loop.
 // An item id outside [0, F) traps (the plain path's index_select raises):
 // a wrong id ends the launch with an error instead of reading past the
-// scratch.
+// words.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -164,27 +166,35 @@ void launch_count(const uint4* bits, const int32_t* cand, int32_t* out,
 
 }  // namespace
 
-// bitmap (n, f): contiguous uint8/int8 {0,1} rows at any address; cand
-// (n_cand, k) contiguous int32 item ids in [0, f); bits: a scratch of
+// bitmap (n, f): contiguous uint8/int8 {0,1} rows at any address; bits:
 // f * 4 * ceil(n / 128) uint32 words at a 16-byte aligned address, fully
-// written here; out (n_cand,) int32, fully written.  All on the current
-// device, launched on ``stream``.
-extern "C" int gather_and_count_launch(const void* bitmap, const void* cand,
-                                       void* bits, void* out, int n, int f,
-                                       int n_cand, int k, void* stream) {
+// written here.  On the current device, launched on ``stream``.
+extern "C" int gather_and_count_pack_launch(const void* bitmap, void* bits,
+                                            int n, int f, void* stream) {
+  if (n <= 0) return 0;
+  if (f <= 0) return (int)cudaErrorInvalidValue;
+  const int words = 4 * ((n + 127) / 128);
+  const dim3 grid((f + PACK_THREADS - 1) / PACK_THREADS,
+                  words < MAX_GRID_Y ? words : MAX_GRID_Y);
+  gather_and_count_pack_kernel<<<grid, PACK_THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(bitmap), static_cast<uint32_t*>(bits), n,
+      f, words);
+  return (int)cudaGetLastError();
+}
+
+// bits: the words gather_and_count_pack_launch wrote for n rows of f
+// columns; cand (n_cand, k) contiguous int32 item ids in [0, f); out
+// (n_cand,) int32, fully written.  On the current device, launched on
+// ``stream``.
+extern "C" int gather_and_count_count_launch(const void* bits,
+                                             const void* cand, void* out,
+                                             int n, int f, int n_cand, int k,
+                                             void* stream) {
   if (n <= 0 || n_cand <= 0) return 0;
   if (f <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
   const int vecs = (n + 127) / 128;  // 16-byte vectors a column
-  const int words = 4 * vecs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  auto* scratch = static_cast<uint32_t*>(bits);
-
-  const dim3 pack_grid((f + PACK_THREADS - 1) / PACK_THREADS,
-                       words < MAX_GRID_Y ? words : MAX_GRID_Y);
-  gather_and_count_pack_kernel<<<pack_grid, PACK_THREADS, 0, st>>>(
-      static_cast<const uint8_t*>(bitmap), scratch, n, f, words);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
 
   long long tile = TILE_BYTES / (16ll * f);
   if (tile < MIN_TILE_VECS) tile = MIN_TILE_VECS;
@@ -198,7 +208,8 @@ extern "C" int gather_and_count_launch(const void* bitmap, const void* cand,
     return (int)cudaErrorInvalidConfiguration;
   auto* counts = static_cast<int32_t*>(out);
   if (tiles > 1) {
-    err = cudaMemsetAsync(counts, 0, sizeof(int32_t) * (size_t)n_cand, st);
+    const cudaError_t err =
+        cudaMemsetAsync(counts, 0, sizeof(int32_t) * (size_t)n_cand, st);
     if (err != cudaSuccess) return (int)err;
   }
   const auto* vbits = static_cast<const uint4*>(bits);

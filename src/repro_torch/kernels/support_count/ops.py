@@ -3,6 +3,8 @@
 On CPU tensors a wrapper computes with its kernel's plain version
 (``ref.py``); on CUDA tensors it launches the hand-written kernel
 (``csrc/``) on PyTorch's current stream, or raises — there is no fallback.
+Kernel 3's two halves (``gather_and_count_pack``, ``gather_and_count_bits``)
+work on a word layout that only the card makes, and raise on CPU tensors.
 The wrapper checks device, dtype, shape and contiguity, allocates the
 output, makes the tensors' device current (``torch.cuda.device`` on its
 index) and launches on that device's current stream (``_stream``), and adds one to ``launches[name]`` for every kernel launch (and
@@ -165,30 +167,80 @@ def support_count(bitmap: torch.Tensor, khot: torch.Tensor,
     return out
 
 
+def gather_and_count_words(n: int) -> int:
+    """32-bit words a column of ``gather_and_count_pack`` holds for n rows:
+    a whole number of 16-byte vectors."""
+    return 4 * -(-n // 128)
+
+
+def gather_and_count_pack(bitmap: torch.Tensor) -> torch.Tensor:
+    """(F, ``gather_and_count_words(N)``) int32 carrying uint32 words: the
+    columns of ``bitmap`` (N, F) {0,1} rows as bits, word w of column f
+    holding rows 32 w .. 32 w + 31 (bit r for row 32 w + r), and zero bits
+    past row N.  Any row view is read as is (an offset, F not a multiple
+    of 16).  Only the kernel makes this layout: on CPU tensors it raises,
+    since the plain count reads the bitmap itself."""
+    if _on_cpu(bitmap):
+        raise ValueError("gather_and_count_pack: the words are made only "
+                         "on a CUDA device")
+    _check("bitmap", bitmap, (torch.int8, torch.uint8), 2)
+    n, f = bitmap.shape
+    bits = bitmap.new_empty((f, gather_and_count_words(n)),
+                            dtype=torch.int32)
+    if n == 0 or f == 0:
+        return bits
+    with torch.cuda.device(bitmap.device.index):
+        _launch("gather_and_count_pack", bitmap.data_ptr(), bits.data_ptr(),
+                n, f, _stream(bitmap.device))
+    return bits
+
+
+def gather_and_count_bits(bits: torch.Tensor, n: int,
+                          cand: torch.Tensor) -> torch.Tensor:
+    """int32[C]: for every candidate row of ``cand`` (C, k) int32 item ids,
+    the number of the n rows packed in ``bits`` (``gather_and_count_pack``
+    of an (n, F) bitmap) in which all k columns are set.
+
+    The kernel ANDs and popcounts each candidate's columns tile by tile of
+    rows, so one call takes any n (the engine's whole chunk); it reads only
+    the words, so words packed once serve every count over the same rows.
+    The counts are an allocation of their own and keep nothing else
+    alive."""
+    if _on_cpu(bits, cand):
+        raise ValueError("gather_and_count_bits: the words are read only "
+                         "on a CUDA device")
+    _check("bits", bits, (torch.int32,), 2)
+    _check("cand", cand, (torch.int32,), 2)
+    f = bits.shape[0]
+    c, k = cand.shape
+    if k == 0:
+        raise ValueError("cand: a candidate needs at least one item")
+    if bits.shape[1] != gather_and_count_words(n):
+        raise ValueError(f"bits: shape {tuple(bits.shape)} does not pack "
+                         f"{n} rows")
+    if n == 0 or c == 0:
+        return torch.zeros((c,), dtype=torch.int32, device=bits.device)
+    out = torch.empty((c,), dtype=torch.int32, device=bits.device)
+    with torch.cuda.device(bits.device.index):
+        _launch("gather_and_count", bits.data_ptr(), cand.data_ptr(),
+                out.data_ptr(), n, f, c, k, _stream(bits.device))
+    return out
+
+
 def gather_and_count(bitmap: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     """int32[C]: for every candidate row of ``cand`` (C, k) int32 item ids,
     the number of ``bitmap`` (N, F) {0,1} rows in which all k columns are
-    set.  Any row view is read as is (an offset, F not a multiple of 16).
-
-    The kernel packs the rows' columns into an (F, 4 ceil(N/128)) word
-    scratch, then ANDs and popcounts each candidate's columns tile by tile
-    of rows, so one call takes any N (the engine's whole chunk).  The
-    scratch is freed on return (the allocator reuses it in stream order);
-    the counts are an allocation of their own and keep nothing else alive."""
+    set: ``gather_and_count_pack`` then ``gather_and_count_bits``, for a
+    caller that counts a bitmap once.  The words are freed on return (the
+    allocator reuses them in stream order)."""
     if _on_cpu(bitmap, cand):
         return gather_and_count_ref(bitmap, cand)
     _check("bitmap", bitmap, (torch.int8, torch.uint8), 2)
     _check("cand", cand, (torch.int32,), 2)
-    n, f = bitmap.shape
-    c, k = cand.shape
-    if k == 0:
+    if cand.shape[1] == 0:
         raise ValueError("cand: a candidate needs at least one item")
-    if n == 0 or c == 0:
-        return torch.zeros((c,), dtype=torch.int32, device=bitmap.device)
-    out = torch.empty((c,), dtype=torch.int32, device=bitmap.device)
-    bits = bitmap.new_empty((f * 4 * -(-n // 128),), dtype=torch.int32)
-    with torch.cuda.device(bitmap.device.index):
-        _launch("gather_and_count", bitmap.data_ptr(), cand.data_ptr(),
-                bits.data_ptr(), out.data_ptr(), n, f, c, k,
-                _stream(bitmap.device))
-    return out
+    if bitmap.shape[0] == 0 or cand.shape[0] == 0:
+        return torch.zeros((cand.shape[0],), dtype=torch.int32,
+                           device=bitmap.device)
+    return gather_and_count_bits(gather_and_count_pack(bitmap),
+                                 bitmap.shape[0], cand)

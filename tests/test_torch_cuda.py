@@ -12,14 +12,18 @@ k with kvec = -1 pad rows, and wide vocabularies; the bitmap kernel also on
 the edges of its TMA/wgmma design (``WGMMA_EDGES``), and the
 gather-AND-popcount kernel of ``perfect_hash`` on row counts around its
 32-row words, trimmed widths, k up to 9, pad rows and N over several of its
-row tiles (``GATHER_CASES``).
+row tiles (``GATHER_CASES``), composed and as its two halves (words packed
+once, then counted twice).  A ``perfect_hash`` DB placed on the card is
+packed once at ``place``: its counts launch no pack, and its plain path
+counts row blocks of the bitmap alone.
 Small mines through each store on the card (host loop and level ladder, the
 kernel stores with the kernel on and off) are held against brute-force
 counting, the trie and hash-tree stores against ``perfect_hash``, and a
 mine with the default kernel switch must move its kernel's launch counter
 by row blocks x candidate chunks and no other (``perfect_hash``, whose
 kernel counts all rows in one call, by candidate chunks: ``row_calls``,
-shared with ``chip_smoke.py``).  Out of core, a ``.dat`` mined through
+shared with ``chip_smoke.py``; its pack counter by one a build of its
+tensors).  Out of core, a ``.dat`` mined through
 ``ChunkedDatasetReader`` with the kernels on must equal the resident
 ``perfect_hash`` mine on its plain path, and the block count of a chunk
 shorter than ``block_n`` and of a ragged final chunk must equal the plain
@@ -49,11 +53,13 @@ from repro_torch.core.miner import FrequentItemsetMiner  # noqa: E402
 from repro_torch.core.runtime.engine import MapReduceEngine  # noqa: E402
 from repro_torch.core.runtime.runners import TorchRunner  # noqa: E402
 from repro_torch.core.stores import (  # noqa: E402
-    ARRAY_STORES, ITEM_PAD, pack_bitmap, padded_from_transactions)
+    ARRAY_STORES, ITEM_PAD, PerfectHashStore, pack_bitmap,
+    padded_from_transactions)
 from repro_torch.core.stores.packed_bitmap import pack_candidates_device  # noqa: E402
 from repro_torch.data import ChunkedDatasetReader, get_dataset, write_dat  # noqa: E402
 from repro_torch.kernels.support_count import (  # noqa: E402
-    gather_and_count, gather_and_count_ref, launches, packed_support_count,
+    gather_and_count, gather_and_count_bits, gather_and_count_pack,
+    gather_and_count_ref, gather_and_count_words, launches, packed_support_count,
     packed_support_count_ref, pad_copies, support_count, support_count_ref,
 )
 from repro_torch.launch.multihost import launch_cluster  # noqa: E402
@@ -369,12 +375,108 @@ def test_gather_and_count_kernel_matches_plain(cuda, case):
     got = gather_and_count(bitmap, cand)
     torch.cuda.synchronize()
     assert {name: launches[name] - before[name] for name in launches} == {
-        name: int(name == "gather_and_count") for name in launches}
+        name: int(name in ("gather_and_count", "gather_and_count_pack"))
+        for name in launches}
     want = gather_and_count_ref(bitmap, cand)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
     assert int(want[0]) >= 1  # the case exercises matches, not only zeros
     if pads:
         assert (got[-pads:] == 0).all()
+
+
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_gather_and_count_bits_match_plain(cuda, case):
+    """Words packed once (``gather_and_count_pack``) serve two counts
+    (``gather_and_count_bits``), each one count launch and no pack, both
+    equal to the plain gathers; up to 5,000 rows the words also unpack to
+    the bitmap, with zero bits past its last row."""
+    n, f, c, k, pads, view = GATHER_CASES[case]
+    bitmap, cand = _gather_args(cuda, n, f, c, k, pads, view, seed=len(case))
+    rows = bitmap.shape[0]
+    bits = gather_and_count_pack(bitmap)
+    assert bits.dtype == torch.int32
+    assert bits.shape == (f, gather_and_count_words(rows))
+    before = dict(launches)
+    got = gather_and_count_bits(bits, rows, cand)
+    again = gather_and_count_bits(bits, rows, cand)
+    torch.cuda.synchronize()
+    assert {name: launches[name] - before[name] for name in launches} == {
+        name: 2 * int(name == "gather_and_count") for name in launches}
+    want = gather_and_count_ref(bitmap, cand)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    torch.testing.assert_close(again, want, rtol=0, atol=0)
+    assert int(want[0]) >= 1
+    if rows <= 5000:
+        shifts = torch.arange(32, dtype=torch.int32, device=cuda)
+        unpacked = ((bits[:, :, None] >> shifts) & 1).reshape(f, -1)
+        assert torch.equal(unpacked[:, :rows].T.to(torch.uint8),
+                           (bitmap != 0).to(torch.uint8))
+        assert not unpacked[:, rows:].any()
+
+
+def _placed_perfect_hash(block_n=48, cand_block=1000):
+    """A ``perfect_hash`` runner with the small DB placed on the card, and
+    every pair of its items."""
+    db, _ = _small_db()
+    runner = TorchRunner(store="perfect_hash", block_n=block_n,
+                         cand_block=cand_block)
+    runner.ingest(db)
+    hist, _ = runner.job1()
+    before = dict(launches)
+    runner.place(np.nonzero(hist >= 4)[0])
+    torch.cuda.synchronize()
+    placed = {name: launches[name] - before[name] for name in launches}
+    n_items = runner.engine._enc.n_items
+    pairs = np.array([(a, b) for a in range(n_items)
+                      for b in range(a + 1, n_items)], dtype=np.int32)
+    return runner, pairs, placed
+
+
+def test_placed_rows_are_packed_once(cuda):
+    """``place`` packs the rows once; a count over them launches one count
+    a candidate chunk and no pack, and equals the plain gathers over the
+    placed bitmap."""
+    assert PerfectHashStore.use_kernel is None
+    runner, pairs, placed = _placed_perfect_hash()
+    assert placed == {name: int(name == "gather_and_count_pack")
+                      for name in launches}
+    assert pairs.shape[0] > 2 * 1000  # several candidate chunks
+    before = dict(launches)
+    got = runner.engine.count_candidates(pairs)
+    assert {name: launches[name] - before[name] for name in launches} == {
+        name: math.ceil(pairs.shape[0] / 1000) * int(name == "gather_and_count")
+        for name in launches}
+    bitmap = runner.engine._trans_device["bitmap"]
+    want = gather_and_count_ref(bitmap, torch.from_numpy(pairs).to(cuda))
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+    assert want.sum() > 0
+
+
+def test_plain_path_on_card_counts_row_blocks(cuda, monkeypatch):
+    """With ``use_kernel=False`` on the card the engine counts the placed
+    rows in ``block_n``-row blocks of the bitmap alone (the packed words
+    are no row tensor), launches nothing, and equals the plain gathers over
+    all the rows."""
+    runner, pairs, _ = _placed_perfect_hash()
+    bitmap = runner.engine._trans_device["bitmap"]
+    monkeypatch.setattr(PerfectHashStore, "use_kernel", False)
+    calls, orig = [], PerfectHashStore.count_block
+
+    def logged(trans, cands):
+        calls.append((sorted(trans), trans["bitmap"].shape[0]))
+        return orig(trans, cands)
+
+    monkeypatch.setattr(PerfectHashStore, "count_block", staticmethod(logged))
+    before = dict(launches)
+    got = runner.engine.count_candidates(pairs)
+    assert dict(launches) == before
+    n = bitmap.shape[0]
+    assert n % 48  # a ragged tail block
+    per_chunk = [48] * (n // 48) + [n % 48]
+    assert calls == [(["bitmap"], r) for r in per_chunk] * math.ceil(
+        pairs.shape[0] / 1000)
+    want = gather_and_count_ref(bitmap, torch.from_numpy(pairs).to(cuda))
+    np.testing.assert_array_equal(got, want.cpu().numpy())
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -410,6 +512,20 @@ def test_small_mine_on_card_matches_brute_force(cuda, store, use_kernel,
     assert got.itemsets == want
 
 
+def _log_builds(monkeypatch):
+    """The row counts of every build of the ``perfect_hash`` store's
+    tensors from here on, each of which packs its rows once on the card."""
+    builds, orig = [], PerfectHashStore.device_transaction_inputs
+
+    def logged(padded, bitmap):
+        builds.append(bitmap.shape[0])
+        return orig(padded, bitmap)
+
+    monkeypatch.setattr(PerfectHashStore, "device_transaction_inputs",
+                        staticmethod(logged))
+    return builds
+
+
 def _small_db():
     db = get_dataset("T10I4D100K", scale=0.002, seed=0)
     return db, brute_force_frequent(db, math.ceil(0.02 * len(db)))
@@ -419,18 +535,25 @@ def _small_db():
                                           ("bitmap", "support_count"),
                                           ("perfect_hash", "gather_and_count")])
 @pytest.mark.parametrize("trim", [False, True])
-def test_ladder_mine_on_card_matches_brute_force(cuda, store, kernel, trim):
+def test_ladder_mine_on_card_matches_brute_force(cuda, store, kernel, trim,
+                                                monkeypatch):
     """The level ladder through a kernel store at its default switch: the
     kernel launches once per row block and level (one unchunked pass;
-    ``perfect_hash`` once a level)."""
+    ``perfect_hash`` once a level), and ``perfect_hash`` packs its rows
+    once a build of its tensors (the placed rows, the ladder's own and one
+    a trim), never a level."""
     assert ARRAY_STORES[store].use_kernel is None
     db, want = _small_db()
-    before = launches[kernel]
+    builds = _log_builds(monkeypatch)
+    before = dict(launches)
     got = FrequentItemsetMiner(min_support=0.02, store=store, device_loop=True,
                                trim=trim, block_n=64).mine(db)
     assert got.itemsets == want
     expected = sum(row_calls(store, p.n_pad, 64) for p in got.levels[1:])
-    assert launches[kernel] - before == expected > 0
+    assert launches[kernel] - before[kernel] == expected > 0
+    packs = launches["gather_and_count_pack"] - before["gather_and_count_pack"]
+    assert packs == (len(builds) if store == "perfect_hash" else 0)
+    assert store != "perfect_hash" or len(builds) >= 2  # placed, ladder's
 
 
 @pytest.mark.parametrize("store,kernel", [("packed_bitmap", "packed_support_count"),
@@ -450,14 +573,18 @@ def test_default_switch_mine_launches_kernel(cuda, store, kernel, monkeypatch):
         return orig(self, cand)
 
     monkeypatch.setattr(MapReduceEngine, "count_candidates_async", logged)
+    builds = _log_builds(monkeypatch)
     before = dict(launches)
     got = FrequentItemsetMiner(min_support=0.02, store=store).mine(db)
     assert got.itemsets == want
     expected = row_calls(store, len(db)) * sum(math.ceil(c / 32_768)
                                                for c in waves)
+    packs = len(builds) if store == "perfect_hash" else 0
     assert {k: launches[k] - before[k] for k in launches} == {
-        k: (expected if k == kernel else 0) for k in launches}
+        k: (expected if k == kernel else packs if k == "gather_and_count_pack"
+            else 0) for k in launches}
     assert expected > 0
+    assert len(builds) == (store == "perfect_hash")  # the one placement
 
 
 @pytest.mark.parametrize("store", ["sorted_prefix", "hash_bucket"])
@@ -742,8 +869,13 @@ def test_sharded_mine_on_card_matches_torch_runner(cuda, tmp_path, backend,
             local = row_calls(store, rec["local_rows"])
             assert rec["local_rows"] == 5000 // n_data
             want = rec["base"][kernel] // blocks * local
+            # one placement each: perfect_hash packs its rows once
+            packs = int(store == "perfect_hash")
+            assert rec["base"]["gather_and_count_pack"] == packs
             assert rec["sharded"] == {
-                k: (want if k == kernel else 0) for k in rec["sharded"]}
+                k: (want if k == kernel else packs
+                    if k == "gather_and_count_pack" else 0)
+                for k in rec["sharded"]}
 
 
 # -- the LM and the token-set miner --------------------------------------------
@@ -796,17 +928,18 @@ def test_serve_engine_on_card_matches_cpu(cuda, arch):
 
 
 @pytest.mark.parametrize("store,kernel", KERNEL_STORES)
-def test_token_set_miner_on_card(cuda, store, kernel):
+def test_token_set_miner_on_card(cuda, store, kernel, monkeypatch):
     """``TokenSetMiner`` on the card through a kernel store equals the CPU
     ``perfect_hash`` mine, and its kernel launches once per row block and
     candidate chunk of every level (SPC: one wave per level; ``perfect_hash``
-    once a chunk)."""
+    once a chunk, and one pack a build of its tensors)."""
     from repro_torch.analytics import TokenSetMiner
     from repro_torch.data.pipeline import SyntheticLM
 
     pipe = SyntheticLM(512, 8, 256, seed=0)
     want = TokenSetMiner(min_support=0.05, store="perfect_hash", window=32,
                          device="cpu").mine_steps(pipe, [0, 1])
+    builds = _log_builds(monkeypatch)
     before = dict(launches)
     got = TokenSetMiner(min_support=0.05, store=store, window=32).mine_steps(
         pipe, [0, 1])
@@ -814,8 +947,11 @@ def test_token_set_miner_on_card(cuda, store, kernel):
     blocks = row_calls(store, got.n_transactions)
     expected = blocks * sum(math.ceil(p.n_candidates / 32_768)
                             for p in got.levels[1:])
+    packs = len(builds) if store == "perfect_hash" else 0
     assert {k: launches[k] - before[k] for k in launches} == {
-        k: (expected if k == kernel else 0) for k in launches}
+        k: (expected if k == kernel else packs if k == "gather_and_count_pack"
+            else 0) for k in launches}
+    assert len(builds) == (store == "perfect_hash")  # the one placement
 
 
 # -- LM training ---------------------------------------------------------------

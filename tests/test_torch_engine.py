@@ -116,6 +116,63 @@ def test_count_block_rows_per_call(store, use_kernel, whole, path,
         assert rows == per_chunk * -(-cand.shape[0] // 128)
 
 
+@pytest.mark.parametrize("path", ["wave", "block"])
+def test_block_loop_slices_only_row_inputs(path, monkeypatch):
+    """The ``block_n`` loop slices only the store's ``row_inputs`` and takes
+    N from them: a ``perfect_hash`` tensor of another layout built beside
+    the bitmap (as the card's packed words, (F_pad, words)) never reaches a
+    block, and the counts stay exact."""
+    built = PerfectHashStore.device_transaction_inputs
+
+    def with_words(padded, bitmap):
+        trans = built(padded, bitmap)
+        return dict(trans, bits=torch.zeros((bitmap.shape[1], 8),
+                                            dtype=torch.int32))
+
+    keys, orig = [], PerfectHashStore.count_block
+
+    def logged(trans, cands):
+        keys.append((sorted(trans), trans["bitmap"].shape[0]))
+        return orig(trans, cands)
+
+    monkeypatch.setattr(PerfectHashStore, "device_transaction_inputs",
+                        staticmethod(with_words))
+    monkeypatch.setattr(PerfectHashStore, "count_block", staticmethod(logged))
+    jenc = j_encode_db(_db(), n_items=N_ITEMS)
+    enc = encoded_db_from_numpy(jenc.padded, jenc.bitmap, jenc.n_items)
+    engine = TEngine(store="perfect_hash", block_n=64, cand_block=128,
+                     device="cpu")
+    n = enc.n_transactions
+    if path == "wave":
+        engine.place(enc)
+        assert set(engine._trans_device) == {"bitmap", "bits"}
+    for cand, want in zip(_wave(), _reference("perfect_hash")):
+        keys.clear()
+        got = (engine.count_candidates(cand) if path == "wave"
+               else engine.count_block(enc, cand))
+        np.testing.assert_array_equal(got, want)
+        per_chunk = [(["bitmap"], 64)] * (n // 64) + [(["bitmap"], n % 64)]
+        assert keys == per_chunk * -(-cand.shape[0] // 128)
+
+
+@pytest.mark.parametrize("use_kernel", [None, True, False])
+def test_perfect_hash_packs_nothing_on_the_cpu(use_kernel, monkeypatch):
+    """On CPU tensors ``perfect_hash`` builds the bitmap alone at every
+    switch (its words are made only on a card), and its row tensors are
+    that bitmap."""
+    monkeypatch.setattr(PerfectHashStore, "use_kernel", use_kernel)
+    jenc = j_encode_db(_db(), n_items=N_ITEMS)
+    padded, bitmap = (torch.from_numpy(np.ascontiguousarray(a))
+                      for a in (jenc.padded, jenc.bitmap))
+    trans = PerfectHashStore.device_transaction_inputs(padded, bitmap)
+    assert list(trans) == ["bitmap"] and trans["bitmap"] is bitmap
+    assert PerfectHashStore.row_inputs(dict(trans, bits=bitmap.T)) == trans
+    for name in ("packed_bitmap", "bitmap", "sorted_prefix", "hash_bucket"):
+        cls = ARRAY_STORES[name]
+        built = cls.device_transaction_inputs(padded, bitmap)
+        assert cls.row_inputs(built) is built
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_job1_histogram_matches_reference(seed):
     padded, n_raw = j_padded(_db(seed, n=257))

@@ -30,7 +30,8 @@ from repro.kernels.support_count import (  # noqa: E402
 )
 
 from repro_torch.kernels.support_count import (  # noqa: E402
-    build, gather_and_count, gather_and_count_ref, launches,
+    build, gather_and_count, gather_and_count_bits, gather_and_count_pack,
+    gather_and_count_ref, gather_and_count_words, launches,
     packed_support_count, packed_support_count_ref, packed_variant,
     support_count, support_count_ref, tma_operands,
 )
@@ -308,6 +309,39 @@ def test_no_fallback_for_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         gather_and_count(meta.to(torch.uint8), torch.empty(
             (3, 2), dtype=torch.int32, device="meta"))
+
+
+def test_kernel_words_are_made_only_on_a_card():
+    """Kernel 3's packed words have no plain version: both halves raise on
+    CPU tensors (the plain count reads the bitmap), and on a device with no
+    kernel, without a launch; a column holds 16-byte vectors of words."""
+    rows, cand = _gather_case(40, 64, 20, 2, 0, seed=1)
+    before = dict(launches)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather_and_count_pack(_t(rows))
+    with pytest.raises(ValueError, match="CUDA device"):
+        gather_and_count_bits(torch.zeros((64, 4), dtype=torch.int32), 40,
+                              _t(cand))
+    with pytest.raises(ValueError, match="no kernel"):
+        gather_and_count_pack(torch.empty((40, 64), dtype=torch.uint8,
+                                          device="meta"))
+    assert dict(launches) == before
+    assert [gather_and_count_words(n) for n in (0, 1, 128, 129, 2 ** 20)] == [
+        0, 4, 4, 8, 32_768]
+
+
+@pytest.mark.parametrize("name", list(build.KERNELS))
+def test_c_entry_point_is_in_its_source(name):
+    """Every launch counter names a C entry of a source in ``csrc/``, whose
+    parameters match the ctypes argument types it is loaded with."""
+    source, symbol, argtypes = build.KERNELS[name]
+    assert source in build.SOURCES
+    text = (build.CSRC / f"{source}.cu").read_text()
+    head = f'extern "C" int {symbol}('
+    assert text.count(head) == 1
+    params = text[text.index(head) + len(head):].split(")", 1)[0]
+    assert len(params.split(",")) == len(argtypes)
+    assert name in launches
 
 
 @pytest.mark.parametrize("name", list(build.KERNELS))
